@@ -1,0 +1,69 @@
+"""Vector math primitives on batched [..., 3] tensors.
+
+Port of take_tpu/core/math.py. Everything works on trailing-dimension-3
+tensors, so the leading (ray-queue) axes are free.
+"""
+
+import torch
+
+C_PI = 3.14159265358979323846
+C_INVPI = 1.0 / C_PI
+C_TWOPI = 2.0 * C_PI
+
+
+def dot(a, b):
+    """Batched dot product over the trailing axis, keeps no dims."""
+    return torch.sum(a * b, dim=-1)
+
+
+def dot_k(a, b):
+    """Batched dot product, keepdim=True (for broadcasting against vectors)."""
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def normalize(a, eps=0.0):
+    """Normalize over the trailing axis. With eps > 0, zero vectors divide
+    by sqrt(eps) instead of 0 (same primal values as the JAX version)."""
+    n2 = torch.sum(a * a, dim=-1, keepdim=True)
+    if eps:
+        n2 = torch.where(n2 > eps, n2, torch.full_like(n2, eps))
+    return a / torch.sqrt(n2)
+
+
+def to_world(n, v):
+    """Frisvad branchless ONB: map local vector v into the frame around n,
+    including the n.z < -1+1e-6 singular branch (vector.h:314-326)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    singular = nz < (-1.0 + 1e-6)
+    a = 1.0 / torch.where(singular, torch.ones_like(nz), 1.0 + nz)
+    b = -nx * ny * a
+    x_reg = torch.stack([1.0 - nx * nx * a, b, -nx], dim=-1)
+    y_reg = torch.stack([b, 1.0 - ny * ny * a, -ny], dim=-1)
+    x_sing = n.new_tensor([0.0, -1.0, 0.0]).expand(n.shape)
+    y_sing = n.new_tensor([-1.0, 0.0, 0.0]).expand(n.shape)
+    s = singular[..., None]
+    x = torch.where(s, x_sing, x_reg)
+    y = torch.where(s, y_sing, y_reg)
+    return x * v[..., 0:1] + y * v[..., 1:2] + n * v[..., 2:3]
+
+
+def face_forward(n, ref):
+    """Flip n to lie in the hemisphere of `ref` (dot(n, ref) >= 0)."""
+    return torch.where(dot_k(n, ref) < 0.0, -n, n)
+
+
+def safe_norm(x, dim=-1):
+    """Euclidean norm, 0 at x == 0 (same primal values as the JAX version)."""
+    sq = torch.sum(x * x, dim=dim)
+    return torch.sqrt(sq)
+
+
+def safe_div(a, b, default=0.0):
+    """a / b with b == 0 lanes returning `default`."""
+    zero = b == 0.0
+    q = a / torch.where(zero, torch.ones_like(b), b)
+    return torch.where(zero, default, q)

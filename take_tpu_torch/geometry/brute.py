@@ -1,0 +1,194 @@
+"""Brute-force triangle sweeps: the CUDA kernels K1/K2 and their plain twins.
+
+`closest` (K1) and `occluded` (K2) replace the JAX package's Pallas kernels
+in take_tpu/geometry/pallas_brute.py (`_closest_kernel`, `_anyhit_kernel`);
+the CUDA source and its design note are in csrc/brute.cu. Both read the
+scene's affine tables as they are (`tri_affine_o` [4, 3 Tpad],
+`tri_affine_d` [3, 3 Tpad], axis-major) and sweep the first `n_tri`
+triangles.
+
+Dispatch is by the device of the rays: a CUDA tensor launches the kernel
+(and raises if it cannot), a CPU tensor runs the plain twin
+(`closest_plain`, `occluded_plain`), which computes the same outputs in
+torch, one [N, T] array at a time, with the affine products taken element
+by element in a fixed order. `LAUNCHES` counts what ran.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from take_tpu_torch.geometry import _build
+from take_tpu_torch.scene.types import ATTR_DIM
+
+BIG = 3.4e38  # t of a miss
+DW_EPS = 1e-12  # parallel-ray reject on the (u, v, w)-frame direction
+
+LAUNCHES = {"closest": 0, "anyhit": 0, "closest_plain": 0, "anyhit_plain": 0}
+
+
+def reset_launches():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+
+
+def tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
+    """All rays x the first n_tri triangles -> (t, u, v, ok), each [N, T].
+
+    The pairwise test of both kernels (and of take_tpu's `_tri_uvt`):
+    t = -s_w / d_w, u = s_u + t d_u, v = s_v + t d_v, rejected when parallel,
+    outside the triangle or outside [tmin, tmax]; rays with tmax <= 0 miss.
+    """
+    tpad = aff_d.shape[1] // 3
+    ox, oy, oz = ro[:, 0:1], ro[:, 1:2], ro[:, 2:3]
+    dx, dy, dz = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
+
+    def s(k):
+        a = aff_o[:, k * tpad : k * tpad + n_tri]
+        return a[0] * ox + a[1] * oy + a[2] * oz + a[3]
+
+    def d(k):
+        a = aff_d[:, k * tpad : k * tpad + n_tri]
+        return a[0] * dx + a[1] * dy + a[2] * dz
+
+    su, sv, sw = s(0), s(1), s(2)
+    du, dv, dw = d(0), d(1), d(2)
+    parallel = dw.abs() < DW_EPS
+    inv_dw = 1.0 / torch.where(parallel, 1.0, dw)
+    t = -sw * inv_dw
+    u = su + t * du
+    v = sv + t * dv
+    ok = (
+        ~parallel
+        & (tmax > 0.0)[:, None]
+        & (u >= 0.0)
+        & (v >= 0.0)
+        & (1.0 - (u + v) >= 0.0)
+        & (t - tmin[:, None] >= 0.0)
+        & (tmax[:, None] - t >= 0.0)
+    )
+    return t, u, v, ok
+
+
+def closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
+    """Plain twin of `closest`: same outputs, in torch."""
+    LAUNCHES["closest_plain"] += 1
+    t, u, v, ok = tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
+    t_best, best = torch.where(ok, t, BIG).min(dim=1)  # first index on ties
+    found = t_best < BIG
+    pick = best[:, None]
+    u_best = torch.where(found, u.gather(1, pick)[:, 0], 0.0)
+    v_best = torch.where(found, v.gather(1, pick)[:, 0], 0.0)
+    attrs = torch.where(found[:, None], attr[best], 0.0)
+    prim = torch.where(found, best, -1).to(torch.int32)
+    return attrs, t_best, u_best, v_best, found, prim
+
+
+def occluded_plain(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
+    """Plain twin of `occluded`."""
+    LAUNCHES["anyhit_plain"] += 1
+    return tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)[3].any(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("brute")
+    lib.tt_brute_closest.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
+    lib.tt_brute_closest.restype = _I
+    lib.tt_brute_occluded.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P]
+    lib.tt_brute_occluded.restype = _I
+    lib.tt_error_string.argtypes = [_I]
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape {shape} on {device}, "
+            f"got {x.dtype} {tuple(x.shape)} on {x.device} (contiguous={x.is_contiguous()})"
+        )
+
+
+def _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
+    device, f32 = ro.device, torch.float32
+    n = ro.shape[0]
+    tpad = aff_d.shape[1] // 3
+    if not 0 < n_tri <= tpad:
+        raise ValueError(f"n_tri={n_tri} outside (0, {tpad}]")
+    _check("aff_o", aff_o, f32, (4, 3 * tpad), device)
+    _check("aff_d", aff_d, f32, (3, 3 * tpad), device)
+    _check("ro", ro, f32, (n, 3), device)
+    _check("rd", rd, f32, (n, 3), device)
+    _check("tmin", tmin, f32, (n,), device)
+    _check("tmax", tmax, f32, (n,), device)
+    return n, tpad
+
+
+def _raise_on(code, what):
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: {_lib().tt_error_string(code).decode()} ({code})")
+
+
+def closest(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
+    """K1: closest hit of each ray against the first n_tri triangles.
+
+    Args:
+        aff_o, aff_d: the scene's affine tables [4, 3 Tpad], [3, 3 Tpad].
+        attr: packed attribute rows [Tpad, ATTR_DIM].
+        ro, rd: [N, 3] rays; tmin, tmax: [N].
+    Returns:
+        (attrs [N, ATTR_DIM], t, u, v [N], found [N] bool, prim [N] int32):
+        pallas_tri_sweep's tuple plus the winner's index. On a miss
+        t = 3.4e38, prim = -1, and attrs, u, v are 0.
+    """
+    if not ro.is_cuda:
+        return closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax)
+    n, tpad = _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
+    _check("attr", attr, torch.float32, (tpad, ATTR_DIM), ro.device)
+    attrs = torch.empty((n, ATTR_DIM), dtype=torch.float32, device=ro.device)
+    t, u, v = (torch.empty(n, dtype=torch.float32, device=ro.device) for _ in range(3))
+    prim = torch.empty(n, dtype=torch.int32, device=ro.device)
+    stream = torch.cuda.current_stream(ro.device).cuda_stream
+    code = _lib().tt_brute_closest(
+        aff_o.data_ptr(), aff_d.data_ptr(), tpad, n_tri, attr.data_ptr(),
+        ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+        attrs.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr(), stream,
+    )
+    _raise_on(code, "closest-hit kernel")
+    LAUNCHES["closest"] += 1
+    return attrs, t, u, v, prim >= 0, prim
+
+
+def occluded(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
+    """K2: whether any of the first n_tri triangles is hit in [tmin, tmax].
+
+    Returns [N] bool.
+    """
+    if not ro.is_cuda:
+        return occluded_plain(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
+    n, tpad = _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
+    occ = torch.empty(n, dtype=torch.bool, device=ro.device)
+    stream = torch.cuda.current_stream(ro.device).cuda_stream
+    code = _lib().tt_brute_occluded(
+        aff_o.data_ptr(), aff_d.data_ptr(), tpad, n_tri,
+        ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+        occ.data_ptr(), stream,
+    )
+    _raise_on(code, "any-hit kernel")
+    LAUNCHES["anyhit"] += 1
+    return occ

@@ -1,0 +1,303 @@
+"""Wavefront path tracer with multiple-sample MIS (NEE + BSDF sampling).
+
+Port of take_tpu/integrator/path_tracer.py (the fixed-trip loop `trace_mis` and
+its phase helpers). Ray state is SoA over a flat path axis [N]; the bounce
+loop is a Python loop of max_depth + 1 trips with an `active` lane mask in
+place of every early `break`. Per trip: one NEE shadow query and one BSDF
+bounce query, both at full width, exactly like the JAX scan.
+
+MIS semantics (path_tracing.h):
+  * power heuristic with squared pdfs on the solid-angle light pdf
+    (path_tracing.h:55, :99),
+  * specular materials (Mirror/Plastic by tag) skip NEE and weight
+    BSDF-hits by 1/bsdf_pdf (path_tracing.h:24-26, :99),
+  * the loop runs max_depth + 1 iterations (path_tracing.h:20),
+  * a miss adds throughput * background and terminates (:82-87),
+  * an emitter hit at the camera vertex adds its radiance (:14-18).
+Point lights get a delta-NEE branch (the reference ignores them).
+
+Forward only: callers run it under torch.inference_mode().
+"""
+
+import torch
+
+from take_tpu_torch.core import rng
+from take_tpu_torch.core.math import dot, normalize, safe_div, safe_norm
+from take_tpu_torch.geometry.intersect import intersect_scene, occluded
+from take_tpu_torch.lights.lights import (
+    area_pdf_from_hit_geom,
+    area_pdf_from_sample,
+    sample_on_light,
+    select_uniform,
+)
+from take_tpu_torch.materials.bsdf import (
+    bsdf_eval,
+    bsdf_pdf,
+    bsdf_sample,
+    is_specular,
+    make_shade_point,
+)
+from take_tpu_torch.scene.types import (
+    MAT_DISNEY_BSDF,
+    MAT_DISNEY_CLEARCOAT,
+    MAT_DISNEY_GLASS,
+    MAT_DISNEY_METAL,
+    MAT_DISNEY_SHEEN,
+    Hit,
+    RenderOptions,
+    Scene,
+)
+
+# Minimum parametric distance of every ray (take_tpu/config.py C_EPSILON).
+C_EPSILON = 1e-4
+# Spawn points move RAY_OFFSET_REL * (1 + |p|_inf) along the geometric
+# normal (take_tpu/config.py RAY_OFFSET_REL).
+RAY_OFFSET_REL = 1.2e-4
+# tmax of a lane whose query result is unused: every kernel skips it.
+DEAD_TMAX = -3.4e38
+
+
+def offset_origin(pos, geo_n, direction):
+    """Spawn point for secondary rays: offset along the geometric normal,
+    signed toward `direction`'s hemisphere, scaled with the position
+    magnitude (f32 replacement for the reference's fixed 1e-7 tmin)."""
+    delta = RAY_OFFSET_REL * (1.0 + torch.amax(pos.abs(), dim=-1, keepdim=True))
+    sign = torch.sign(torch.sum(direction * geo_n, dim=-1, keepdim=True))
+    return pos + sign * delta * geo_n
+
+
+def _background(scene: Scene, rd):
+    """Radiance for escaped rays: the flat background (the port has no
+    environment light yet; parse_xml refuses envmap scenes)."""
+    return scene.background.expand(rd.shape)
+
+
+def _camera_vertex(scene: Scene, ro, rd):
+    """Primary intersection + camera-vertex radiance (path_tracing.h:7-18).
+
+    Returns (radiance0, (ro, rd, hit, active))."""
+    N = ro.shape[0]
+    tmin0 = ro.new_full((N,), C_EPSILON)
+    tmax0 = ro.new_full((N,), float("inf"))
+    hit = intersect_scene(scene, ro, rd, tmin0, tmax0)
+    v = hit.valid[:, None]
+    radiance = torch.where(v, 0.0, _background(scene, rd))
+    radiance = radiance + torch.where(v, hit.emit, 0.0)
+    return radiance, (ro, rd, hit, hit.valid)
+
+
+def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
+    """NEE at the current vertex -> C1 [N, 3] (path_tracing.h:30-60)."""
+    n_lights = scene.meta.n_lights
+    N = ro.shape[0]
+    dir_in = -rd
+    C1 = torch.zeros_like(ro)
+    if n_lights == 0:
+        return C1
+
+    u_sel = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LIGHT_SELECT))
+    u1 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LIGHT_U1))
+    u2 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LIGHT_U2))
+    ls = sample_on_light(scene, select_uniform(scene, u_sel), hit.pos, u1, u2)
+    delta = ls.position - hit.pos
+    d = safe_norm(delta)
+    light_dir = delta / torch.clamp(d, min=1e-30)[:, None]
+    tmax_shadow = (1.0 - 1e-3) * d
+
+    # Lanes whose NEE result is unused (dead or specular) and lanes whose
+    # contribution is zero for every parameter value (a geometric backface
+    # of a reflective material, or a light seen from behind) get
+    # tmax = DEAD_TMAX, so the any-hit query skips them.
+    transmissive = (sp.tag == MAT_DISNEY_GLASS) | (sp.tag == MAT_DISNEY_BSDF)
+    full_refl = (
+        (sp.tag == MAT_DISNEY_METAL)
+        | (sp.tag == MAT_DISNEY_CLEARCOAT)
+        | (sp.tag == MAT_DISNEY_SHEEN)
+    )
+    light_back = dot(sp.geo_n, light_dir) < 0.0
+    arr_back = dot(sp.geo_n, dir_in) < 0.0
+    zero_contrib = (~transmissive) & (light_back | (arr_back & ~full_refl))
+    if scene.meta.has_area_lights:
+        zero_contrib = zero_contrib | (ls.is_area & (dot(-ls.normal, light_dir) <= 0.0))
+    shadow_o = offset_origin(hit.pos, hit.geo_n, light_dir)
+    nee_live = active & ~spec & ~zero_contrib
+    shadow_occ = occluded(
+        scene, shadow_o, light_dir, ro.new_full((N,), C_EPSILON),
+        torch.where(nee_live, tmax_shadow, DEAD_TMAX),
+    )
+    FG = bsdf_eval(scene, sp, dir_in, light_dir)
+    bp = torch.clamp(bsdf_pdf(scene, sp, dir_in, light_dir), max=1e18)
+
+    if scene.meta.has_area_lights:
+        cos_l = torch.clamp(dot(-ls.normal, light_dir), min=0.0)
+        apdf = area_pdf_from_sample(ls, ls.position, hit.pos)
+        # solid-angle light pdf (path_tracing.h:39), cos floored before the
+        # division so a grazing light gets weight -> 0
+        lp = torch.clamp(
+            safe_div(apdf * d * d, torch.clamp(cos_l, min=1e-12) * n_lights, 0.0),
+            max=1e18,
+        )
+        w = safe_div(lp, lp * lp + bp * bp, 0.0)  # power heuristic / lp
+        ok = ls.is_area & (bp > 0.0) & (cos_l > 0.0) & (~shadow_occ)
+        C1 = C1 + FG * ls.intensity * torch.where(ok, w, 0.0)[:, None]
+    if scene.meta.has_point_lights:
+        # delta light: estimator I/d^2 / pmf_select, no MIS partner
+        inv_d2 = safe_div(torch.ones_like(d), d * d, 0.0)
+        okp = (~ls.is_area) & (~shadow_occ)
+        C1 = C1 + FG * ls.intensity * torch.where(okp, inv_d2 * n_lights, 0.0)[:, None]
+    return torch.where((spec | ~active)[:, None], 0.0, C1)
+
+
+def _vertex_sample(scene: Scene, streams, i, hit, sp, rd):
+    """BSDF sampling at the current vertex (path_tracing.h:62-78).
+
+    Returns (new_ro, dir_out, FG, bpdf, sample_ok)."""
+    dir_in = -rd
+    u_lobe = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LOBE_SELECT))
+    ub1 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_BSDF_U1))
+    ub2 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_BSDF_U2))
+    ub3 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_AUX))
+    dir_out, bpdf = bsdf_sample(scene, sp, dir_in, u_lobe, ub1, ub2, ub3)
+    sample_ok = bpdf > 0.0
+    # failed samples may carry a zero direction: substitute a unit one
+    dir_out = torch.where(sample_ok[:, None], dir_out, dir_out.new_tensor([0.0, 0.0, 1.0]))
+    FG = bsdf_eval(scene, sp, dir_in, dir_out, sample_pdf=bpdf)
+    dir_out = normalize(dir_out, eps=1e-30)
+    new_ro = offset_origin(hit.pos, hit.geo_n, dir_out)
+    return new_ro, dir_out, FG, bpdf, sample_ok
+
+
+def _arrival_contribs(scene: Scene, prev_pos, dir_out, FG, bpdf, spec, sample_ok, active, new_hit):
+    """Contributions found by tracing the sampled ray (path_tracing.h:82-100).
+
+    Returns (miss_term, C2_term, contrib), each lane-masked and not yet
+    scaled by the running throughput."""
+    n_lights = scene.meta.n_lights
+    contrib = safe_div(FG, bpdf[:, None], 0.0)  # FG / bsdf_pdf
+    bpdf_c = torch.clamp(bpdf, max=1e18)
+
+    # miss -> background with full credit (path_tracing.h:82-87)
+    miss = sample_ok & ~new_hit.valid
+    miss_term = torch.where((active & miss)[:, None], contrib * _background(scene, dir_out), 0.0)
+
+    # emitter hit -> C2 with the power-heuristic weight (path_tracing.h:88-100)
+    C2 = torch.zeros_like(prev_pos)
+    if n_lights > 0 and scene.meta.has_area_lights:
+        hit_em = new_hit.valid & (new_hit.light_id >= 0)
+        d2 = safe_norm(new_hit.pos - prev_pos)
+        cos_l = torch.clamp(dot(-new_hit.geo_n, dir_out), min=0.0)
+        apdf = area_pdf_from_hit_geom(new_hit.light_geom, new_hit.pos, prev_pos)
+        apdf = torch.where(hit_em, apdf, 0.0)
+        lp = safe_div(apdf * d2 * d2, torch.clamp(cos_l, min=1e-12) * n_lights, 0.0)
+        lp = torch.clamp(lp, max=1e18)
+        w = torch.where(
+            spec,
+            safe_div(torch.ones_like(bpdf), bpdf, 0.0),
+            safe_div(bpdf_c, lp * lp + bpdf_c * bpdf_c, 0.0),
+        )
+        C2 = FG * new_hit.emit * torch.where(hit_em & sample_ok, w, 0.0)[:, None]
+    C2_term = torch.where(active[:, None], C2, 0.0)
+    return miss_term, C2_term, contrib
+
+
+def _bounce_step(scene: Scene, streams, i, state):
+    """One wavefront bounce (the body of path_tracing.h:20-109).
+
+    Args:
+        state: (ro, rd, hit, active) — current vertex per lane.
+        i: bounce index (Python int) — keys the RNG counters.
+    Returns:
+        (new_state, c, w): radiance increment `c` [N, 3] and throughput
+        factor `w` [N, 3], both excluding the running throughput. Dead lanes
+        give c == 0 and w == 1.
+    """
+    ro, rd, hit, active = state
+    N = ro.shape[0]
+    sp = make_shade_point(scene, hit)
+    spec = is_specular(sp)
+
+    c = _vertex_nee(scene, streams, i, hit, sp, spec, active, ro, rd)
+    new_ro, dir_out, FG, bpdf, sample_ok = _vertex_sample(scene, streams, i, hit, sp, rd)
+    new_hit = intersect_scene(
+        scene, new_ro, dir_out, ro.new_full((N,), C_EPSILON),
+        torch.where(active & sample_ok, float("inf"), DEAD_TMAX),
+    )
+    miss_term, C2_term, contrib = _arrival_contribs(
+        scene, hit.pos, dir_out, FG, bpdf, spec, sample_ok, active, new_hit
+    )
+    c = c + miss_term + C2_term
+
+    # throughput factor (path_tracing.h:107); dead lanes keep w == 1
+    w = torch.where(active[:, None], contrib, 1.0)
+    new_active = active & sample_ok & new_hit.valid
+
+    # keep state well-defined on dead lanes
+    keep = active[:, None]
+    ro_n = torch.where(keep, new_ro, ro)
+    rd_n = torch.where(keep, dir_out, rd)
+    hit_n = Hit(*(
+        torch.where(keep if new.dim() == 2 else active, new, old)
+        for new, old in zip(new_hit, hit)
+    ))
+    return (ro_n, rd_n, hit_n, new_active), c, w
+
+
+def rr_step(options: RenderOptions, streams, i, state, c, w, T):
+    """Russian roulette after a bounce's contributions (unbiased).
+
+    At bounce i >= options.rr_depth each live lane survives with
+    p = clamp(max-channel of T * w, 0.05, 1) and is reweighted by 1/p.
+    Identity when rr_depth < 0 (the reference default).
+    """
+    if options.rr_depth < 0 or i < options.rr_depth:
+        return state, c, w
+    ro_, rd_, hit_, active_ = state
+    u = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_RR))
+    p = torch.clamp(torch.amax(T * w, dim=-1), 0.05, 1.0)
+    survive = u < p
+    w = w * torch.where(survive & active_, 1.0 / p, 1.0)[:, None]
+    return (ro_, rd_, hit_, active_ & survive), c, w
+
+
+def trace_mis(scene: Scene, options: RenderOptions, ro, rd, streams):
+    """Trace a batch of camera rays to radiance with multi-sample MIS.
+
+    Args:
+        scene: device scene.
+        ro, rd: [N, 3] primary ray origins/directions (unit).
+        streams: per-path RNG streams from rng.make_stream.
+    Returns:
+        [N, 3] radiance.
+    """
+    radiance, state = _camera_vertex(scene, ro, rd)
+    throughput = torch.ones_like(ro)
+    for i in range(options.max_depth + 1):
+        state, c, w = _bounce_step(scene, streams, i, state)
+        state, c, w = rr_step(options, streams, i, state, c, w, throughput)
+        radiance = radiance + throughput * c
+        throughput = throughput * w
+    return radiance
+
+
+def trace_query_counts(scene: Scene, options: RenderOptions, ro, rd, streams):
+    """Scene-query accounting for a batch of camera rays.
+
+    Returns (nominal, active) Python-int query counts:
+      nominal = what the fixed-trip loop launches (1 camera query + per
+                trip 1 shadow + 1 bounce query, full width),
+      active  = queries on lanes alive at that bounce (shadow queries count
+                only non-specular live lanes, the reference's NEE skip,
+                path_tracing.h:24-26).
+    The JAX version's third count, `swept`, measures the TPU kernels'
+    1024-ray dead-block skip and has no counterpart here.
+    """
+    N = ro.shape[0]
+    _, state = _camera_vertex(scene, ro, rd)
+    nominal = active_q = N
+    for i in range(options.max_depth + 1):
+        _, _, hit, active = state
+        spec = is_specular(make_shade_point(scene, hit))
+        active_q += int(active.sum()) + int((active & ~spec).sum())
+        nominal += 2 * N
+        state, _, _ = _bounce_step(scene, streams, i, state)
+    return nominal, active_q

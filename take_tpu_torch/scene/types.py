@@ -1,0 +1,292 @@
+"""Scene representation: tagged SoA tensors + static metadata.
+
+Port of take_tpu/scene/types.py: the same dataclasses, field for field, with
+torch tensors in place of JAX arrays, and the same packed column layouts
+(ATTR_*, SATTR_*, MATTR_*, LATTR_*). Every tensor of a Scene lies on one
+device, chosen when the scene is built (scene/build.py) or converted
+(`scene_from_numpy`).
+"""
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from take_tpu_torch.core.camera import Camera
+
+# Material tags (order mirrors the reference variant, material.h:82-93)
+MAT_DIFFUSE = 0
+MAT_MIRROR = 1
+MAT_PLASTIC = 2
+MAT_PHONG = 3
+MAT_BLINN_PHONG = 4
+MAT_BLINN_PHONG_MICROFACET = 5
+MAT_DISNEY_DIFFUSE = 6
+MAT_DISNEY_METAL = 7
+MAT_DISNEY_GLASS = 8
+MAT_DISNEY_CLEARCOAT = 9
+MAT_DISNEY_SHEEN = 10
+MAT_DISNEY_BSDF = 11
+
+MATERIAL_NAMES = {
+    MAT_DIFFUSE: "diffuse",
+    MAT_MIRROR: "mirror",
+    MAT_PLASTIC: "plastic",
+    MAT_PHONG: "phong",
+    MAT_BLINN_PHONG: "blinnphong",
+    MAT_BLINN_PHONG_MICROFACET: "blinnphongmicrofacet",
+    MAT_DISNEY_DIFFUSE: "disneydiffuse",
+    MAT_DISNEY_METAL: "disneymetal",
+    MAT_DISNEY_GLASS: "disneyglass",
+    MAT_DISNEY_CLEARCOAT: "disneyclearcoat",
+    MAT_DISNEY_SHEEN: "disneysheen",
+    MAT_DISNEY_BSDF: "disneybsdf",
+}
+
+# Light tags (light.h:19)
+LIGHT_POINT = 0
+LIGHT_AREA = 1
+
+# Shape kinds for light -> shape references
+SHAPE_TRI = 0
+SHAPE_SPHERE = 1
+
+# Texture slot kinds (texture.h:27)
+TEX_CONST = 0
+TEX_IMAGE = 1
+
+
+@dataclass
+class GeometryArrays:
+    """Triangle soup + sphere table (see take_tpu's GeometryArrays).
+
+    `tri_affine_o` / `tri_affine_d` hold each triangle's affine map into its
+    (u, v, w) frame, axis-major: column k * Tpad + t is row k of triangle t.
+    The JAX package's `tri_sweep` (transposed supercluster granules) feeds
+    only the BVH cluster kernel and is left out until the port has a BVH.
+    """
+
+    tri_v0: Any  # [T, 3]
+    tri_e1: Any  # [T, 3]
+    tri_e2: Any  # [T, 3]
+    tri_n0: Any  # [T, 3]
+    tri_n1: Any  # [T, 3]
+    tri_n2: Any  # [T, 3]
+    tri_uv0: Any  # [T, 2]
+    tri_uv1: Any  # [T, 2]
+    tri_uv2: Any  # [T, 2]
+    tri_mat: Any  # [T] int32
+    tri_light: Any  # [T] int32, -1 if not emissive
+    tri_flags: Any  # [T] int32
+    tri_affine_o: Any  # [4, 3T]  homogeneous origin map
+    tri_affine_d: Any  # [3, 3T]  direction map
+    tri_attr: Any  # [T, ATTR_DIM] packed shading attributes
+    sph_center: Any  # [S, 3]
+    sph_radius: Any  # [S]
+    sph_mat: Any  # [S] int32
+    sph_light: Any  # [S] int32
+    sph_attr: Any  # [Spad, SATTR_DIM] packed shading attributes
+
+
+@dataclass
+class MaterialArrays:
+    """Material tag + packed parameter table (slots MATTR_*)."""
+
+    tag: Any  # [M] int32
+    attr: Any  # [Mpad, MATTR_DIM]
+
+
+@dataclass
+class LightArrays:
+    """Point + diffuse-area lights as one tagged table (slots LATTR_*)."""
+
+    tag: Any  # [L] int32
+    power_pmf: Any  # [L]
+    power_cdf: Any  # [L] inclusive cdf
+    attr: Any  # [Lpad, LATTR_DIM]
+
+
+@dataclass
+class TextureAtlas:
+    """Image textures, padded to a common [n, Hmax, Wmax, 3] block."""
+
+    data: Any  # [n, Hmax, Wmax, 3]
+    width: Any  # [n] int32
+    height: Any  # [n] int32
+
+
+@dataclass(frozen=True)
+class SceneMeta:
+    """Static scene facts."""
+
+    n_tri: int
+    n_sph: int
+    n_mat: int
+    n_lights: int
+    n_tex: int
+    used_material_tags: Tuple[int, ...]
+    has_image_textures: bool
+    has_envmap: bool
+    has_area_lights: bool
+    has_point_lights: bool
+    any_uv: bool
+    any_normals: bool
+    camera: Optional[Camera] = None
+    has_background: bool = False
+
+
+@dataclass(frozen=True)
+class RenderOptions:
+    """Runtime rendering options (reference RenderOptions, scene.h:5-10 +
+    CLI -max_depth, render.cpp:14). The port runs integrator "mis" (alias
+    "mis_scan"); the JAX package's other integrators, and its grad_mode,
+    come with later slices."""
+
+    spp: int = 4
+    max_depth: int = 50
+    integrator: str = "mis"
+    seed: int = 0
+    # Russian roulette from this bounce index; -1 = off (reference default)
+    rr_depth: int = -1
+    # Rays are processed in chunks of at most this many paths to bound memory.
+    max_rays_per_pass: int = 1 << 20
+
+
+@dataclass
+class Scene:
+    """The full device scene. `envmap` and `bvh` stay None until the port
+    has an environment light and a BVH."""
+
+    geometry: GeometryArrays
+    materials: MaterialArrays
+    lights: LightArrays
+    textures: TextureAtlas
+    background: Any  # [3] radiance returned on miss (scene.h:27)
+    envmap: Optional[Any]
+    bvh: Optional[Any]
+    meta: SceneMeta
+
+
+# Flags bits for tri_flags
+TRI_HAS_NORMALS = 1
+TRI_HAS_UV = 2
+
+# tri_attr packed layout (f32 columns; ids are exact below 2^24)
+ATTR_GEO_N = 0  # 0:3   unit geometric normal (unflipped)
+ATTR_N0 = 3  # 3:6
+ATTR_N1 = 6  # 6:9
+ATTR_N2 = 9  # 9:12
+ATTR_UV0 = 12  # 12:14
+ATTR_UV1 = 14  # 14:16
+ATTR_UV2 = 16  # 16:18
+ATTR_MAT = 18
+ATTR_LIGHT = 19
+ATTR_FLAGS = 20
+ATTR_EMIT = 21  # 21:24 area-light radiance (0 when not emissive)
+ATTR_INV_AREA = 24  # 1/triangle area (area-light pdf base)
+ATTR_DIM = 32
+
+# sph_attr packed layout
+SATTR_CENTER = 0  # 0:3
+SATTR_RADIUS = 3
+SATTR_MAT = 4
+SATTR_LIGHT = 5
+SATTR_EMIT = 6  # 6:9
+SATTR_DIM = 16
+
+# mat_attr packed layout (scalar parameters; reflectance texture slot)
+MATTR_TAG = 0
+MATTR_TEX_KIND = 1
+MATTR_TEX_IMAGE = 2
+MATTR_UVSCALE = 3  # 3:5
+MATTR_UVOFFSET = 5  # 5:7
+MATTR_TEX_VALUE = 7  # 7:10
+MATTR_ETA = 10
+MATTR_EXPONENT = 11
+MATTR_ROUGHNESS = 12
+MATTR_SUBSURFACE = 13
+MATTR_ANISOTROPIC = 14
+MATTR_METALLIC = 15
+MATTR_SPEC_TRANS = 16
+MATTR_SPECULAR = 17
+MATTR_SPECULAR_TINT = 18
+MATTR_SHEEN = 19
+MATTR_SHEEN_TINT = 20
+MATTR_CLEARCOAT = 21
+MATTR_CLEARCOAT_GLOSS = 22
+MATTR_DIM = 24
+
+# light_attr packed layout
+LATTR_TAG = 0
+LATTR_KIND = 1  # SHAPE_TRI | SHAPE_SPHERE
+LATTR_INV_AREA = 2
+LATTR_INTENSITY = 3  # 3:6
+LATTR_POS = 6  # 6:9 point-light position | sphere center
+LATTR_RADIUS = 9  # sphere radius
+LATTR_V0 = 10  # 10:13 triangle vertex
+LATTR_E1 = 13  # 13:16
+LATTR_E2 = 16  # 16:19
+LATTR_N0 = 19  # 19:22 corner shading normals (flip reference)
+LATTR_N1 = 22  # 22:25
+LATTR_N2 = 25  # 25:28
+LATTR_DIM = 32
+
+
+class Hit(NamedTuple):
+    """Batched intersection record (intersection.h) as SoA."""
+
+    valid: Any  # [N] bool
+    t: Any  # [N]
+    pos: Any  # [N, 3]
+    geo_n: Any  # [N, 3] always faces the incoming ray (shape.cpp:35,84)
+    sh_n: Any  # [N, 3] interpolated shading normal (NOT ray-flipped)
+    uv: Any  # [N, 2]
+    mat_id: Any  # [N] int32
+    light_id: Any  # [N] int32 (-1 = not an emitter)
+    front: Any = None  # [N] bool: ray hit the outward-facing side
+    emit: Any = None  # [N, 3] area-light radiance at the hit (0 if none)
+    light_geom: Any = None  # [N] 1/area for tri lights; -radius for spheres
+
+
+_TABLE_GROUPS = (
+    ("geometry", GeometryArrays),
+    ("materials", MaterialArrays),
+    ("lights", LightArrays),
+    ("textures", TextureAtlas),
+)
+# Tables of the JAX package's scene that feed kernels the port does not
+# have yet (the BVH cluster sweep); scene_from_numpy skips them.
+_UNPORTED_TABLES = ("geometry.tri_sweep",)
+
+
+def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
+    """Build a Scene from numpy tables keyed by field path.
+
+    Keys are "geometry.tri_attr", "lights.attr", ..., and "background", as
+    the JAX package's Scene names its fields. Floating tables become
+    float32 and integer tables int32 on `device`. Keys under "bvh." or
+    "envmap." raise NotImplementedError; unknown keys raise KeyError.
+    """
+    tables = dict(tables)
+    for key in _UNPORTED_TABLES:
+        tables.pop(key, None)
+    for key in tables:
+        if key.startswith(("bvh.", "envmap.")):
+            raise NotImplementedError(f"scene table {key}: BVH and envmap slices")
+
+    def upload(a):
+        a = np.asarray(a)
+        dtype = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+    groups = {}
+    for prefix, cls in _TABLE_GROUPS:
+        names = [f.name for f in dataclasses.fields(cls)]
+        groups[prefix] = cls(**{n: upload(tables.pop(f"{prefix}.{n}")) for n in names})
+    background = upload(tables.pop("background"))
+    if tables:
+        raise KeyError(f"unknown scene tables: {sorted(tables)}")
+    return Scene(background=background, envmap=None, bvh=None, meta=meta, **groups)
+

@@ -1,0 +1,104 @@
+"""take_tpu_torch scene tables against take_tpu's: parsing, building, and the
+numpy hand-over (scene_from_numpy)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from take_tpu.scene.parse_xml import parse_scene_file as jax_parse
+from take_tpu_torch.scene.build import SceneBuilder
+from take_tpu_torch.scene.parse_xml import parse_scene_file as port_parse
+from take_tpu_torch.scene.types import scene_from_numpy
+from tests.scenes import cornell_box, sphere_furnace
+from tests.torch_parity import CBOX, port_builder, port_meta, port_scene, tables
+
+
+def _assert_tables_equal(port, jax_scene):
+    """Every port table equals take_tpu's exactly, in dtype, shape and bits;
+    take_tpu's only extra table is the BVH cluster kernel's tri_sweep."""
+    got = tables(port)
+    want = tables(jax_scene)
+    assert set(want) - set(got) == {"geometry.tri_sweep"}
+    for key, value in got.items():
+        assert value.dtype == want[key].dtype, key
+        np.testing.assert_array_equal(value, want[key], err_msg=key)
+
+
+def _assert_meta_equal(port, jax_scene):
+    assert port.meta == port_meta(jax_scene.meta)
+
+
+@pytest.mark.parametrize("scene_fn", [cornell_box, sphere_furnace])
+def test_builder_tables_match(scene_fn):
+    jax_scene = scene_fn().build()
+    port = port_builder(scene_fn).build(device="cpu")
+    _assert_tables_equal(port, jax_scene)
+    _assert_meta_equal(port, jax_scene)
+
+
+def test_cbox_xml_tables_match():
+    jax_scene = jax_parse(CBOX)
+    port = port_parse(CBOX, device="cpu")
+    assert port.meta.n_tri == 32 and port.meta.n_sph == 0 and port.meta.n_lights == 2
+    _assert_tables_equal(port, jax_scene)
+    _assert_meta_equal(port, jax_scene)
+
+
+def test_scene_from_numpy_round_trips():
+    jax_scene = jax_parse(CBOX)
+    port = port_scene(jax_scene)
+    got = tables(port)
+    for key, value in tables(jax_scene).items():
+        if key != "geometry.tri_sweep":
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+    again = scene_from_numpy(got, port.meta, "cpu")
+    for key, value in tables(again).items():
+        np.testing.assert_array_equal(value, got[key], err_msg=key)
+
+
+def test_scene_from_numpy_refuses_unknown_and_unported_tables():
+    packed, meta = SceneBuilder().build_tables()
+    with pytest.raises(KeyError):
+        scene_from_numpy({**packed, "geometry.bogus": np.zeros(1)}, meta, "cpu")
+    with pytest.raises(NotImplementedError):
+        scene_from_numpy({**packed, "bvh.node_min": np.zeros(1)}, meta, "cpu")
+
+
+def test_bvh_sized_scene_raises():
+    b = SceneBuilder()
+    grid = np.array([[x, y, 0.0] for x in range(12) for y in range(12)])
+    idx = np.array([[r * 12 + c, r * 12 + c + 1, (r + 1) * 12 + c]
+                    for r in range(11) for c in range(11)] * 3)
+    b.add_mesh(grid, idx, b.add_material(0))
+    with pytest.raises(NotImplementedError, match="BVH"):
+        b.build()
+    assert b.build_tables(build_bvh=False)[1].n_tri == idx.shape[0]
+
+
+def test_envmap_scene_raises(tmp_path):
+    xml = tmp_path / "env.xml"
+    xml.write_text('<scene version="0.6.0"><emitter type="constant">'
+                   '<rgb name="radiance" value="1, 1, 1"/></emitter></scene>')
+    with pytest.raises(NotImplementedError, match="envmap"):
+        port_parse(str(xml))
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, take_tpu_torch, take_tpu_torch.cli, take_tpu_torch.scene.parse_xml; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'take_tpu')); "
+            "assert not bad, bad")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+
+
+def test_scene_device_and_dtypes():
+    port = port_parse(CBOX, device="cpu")
+    for group in (port.geometry, port.materials, port.lights, port.textures):
+        for f in dataclasses.fields(group):
+            value = getattr(group, f.name)
+            assert value.device.type == "cpu"
+            assert str(value.dtype) in ("torch.float32", "torch.int32"), f.name

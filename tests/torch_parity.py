@@ -1,0 +1,58 @@
+"""Helpers for the take_tpu_torch parity tests: hand one scene to both
+packages as numpy, and build the port's twin of a take_tpu test scene."""
+
+import dataclasses
+import os
+from unittest import mock
+
+import numpy as np
+
+import take_tpu_torch.core.camera as tcam
+import take_tpu_torch.scene.build as tbuild
+import take_tpu_torch.scene.types as tt
+import tests.scenes as jscenes
+
+CBOX = os.path.join(os.path.dirname(__file__), "..", "scenes", "cbox", "cbox.xml")
+
+
+def tables(scene) -> dict:
+    """A Scene's tables (take_tpu's, or the port's on the CPU) as numpy,
+    keyed by field path, the form scene_from_numpy takes."""
+    out = {}
+    for group in ("geometry", "materials", "lights", "textures"):
+        g = getattr(scene, group)
+        for f in dataclasses.fields(g):
+            out[f"{group}.{f.name}"] = np.asarray(getattr(g, f.name))
+    out["background"] = np.asarray(scene.background)
+    return out
+
+
+def port_camera(cam):
+    return tcam.Camera(cam.width, cam.height, cam.lookfrom, cam.lookat, cam.up, cam.vfov)
+
+
+def port_meta(meta):
+    """take_tpu's SceneMeta as the port's (same fields, the port's Camera)."""
+    fields = {f.name: getattr(meta, f.name) for f in dataclasses.fields(tt.SceneMeta)}
+    fields["camera"] = port_camera(meta.camera) if meta.camera is not None else None
+    return tt.SceneMeta(**fields)
+
+
+def port_scene(jax_scene, device="cpu"):
+    """The port's Scene computing on take_tpu's tables, bit for bit."""
+    return tt.scene_from_numpy(tables(jax_scene), port_meta(jax_scene.meta), device)
+
+
+def port_builder(scene_fn, *args, **kwargs):
+    """Run a tests/scenes.py constructor with the port's SceneBuilder and
+    Camera in place of take_tpu's (the material tags are the same ints)."""
+    with mock.patch.object(jscenes, "SceneBuilder", tbuild.SceneBuilder), \
+            mock.patch.object(jscenes, "Camera", tcam.Camera):
+        return scene_fn(*args, **kwargs)
+
+
+def with_res(scene, res, camera_cls):
+    cam = scene.meta.camera
+    new = camera_cls(res, res, cam.lookfrom, cam.lookat, cam.up, cam.vfov)
+    return dataclasses.replace(scene, meta=dataclasses.replace(scene.meta, camera=new))
+

@@ -1,18 +1,31 @@
 #!/usr/bin/env python3
 """Smoke check of take_tpu_torch on one CUDA card: `python3 chip_smoke.py`.
 
-Drives the port's main path (scenes/cbox/cbox.xml, 1024x1024, 16 spp,
-max_depth 4, seed 0) on the card, in phases; each phase prints one line and
-any failure raises, so the exit code is non-zero:
+Drives the port's two main paths on the card, in phases; each phase prints
+one line and any failure raises, so the exit code is non-zero:
 
   1. device: the card's name and nvidia-smi's name and power limit;
-  2. build: compiles the CUDA kernels from take_tpu_torch/csrc;
-  3. kernel parity: K1 (closest hit) and K2 (any hit) against their plain
-     twins on 2^20 rays made from a numpy seed, on the card;
-  4. main path: render_image through the kernels (launch counters must
-     show kernels only), then at 256x256 through the plain twins;
-  5. times: the render's Mrays/s (bench.py's metric), active_fraction,
-     and each kernel's per-call time beside its twin's.
+  2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
+     source, all started together;
+  cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
+  brute-force path, K1/K2):
+  3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
+     2^20 rays made from a numpy seed;
+  4. main: render_image through the kernels (launch counters must show
+     kernels only), then at 256x256 through the plain twins;
+  5. times: the render's Mrays/s (bench.py's metric), active_fraction, and
+     each kernel's per-call time beside its twin's;
+  room (scenes/room/room.xml, 1920x1080, 4 of the published 1024 spp,
+  max_depth 6, seed 0; the wide-BVH path, K3 and, forced, K4/K5):
+  6. room build: parse, BVH build, nodes, wide depth, stack bound, table
+     bytes on the card;
+  7. parity: K3 (closest and any hit), K4 and K5 against their plain twins
+     on 2^20 room rays (camera, incoherent from inside the room, shadow
+     rays toward the light, dead lanes, a padded tail);
+  8. main: render_image through K3 alone (launch counters), then at
+     192x108 through K3, through K4/K5 (traverse.FORCE_CLUSTER) and through
+     the plain twins, whose image means must agree;
+  9. times: as in 5, for room and K3/K4/K5.
 
 It then prints the kernels' JSON line and, last, the device JSON line. It
 fails without a CUDA device, and when run outside a checkout of the repo.
@@ -23,6 +36,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -30,7 +44,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "scenes" / "cbox" / "cbox.xml"
+ROOM = ROOT / "scenes" / "room" / "room.xml"
 RES, SPP, MAX_DEPTH, SEED = 1024, 16, 4, 0
+ROOM_SPP, ROOM_DEPTH = 4, 6  # room at its published 1920x1080; spp cut from 1024
+ROOM_SMALL = (192, 108)  # the three-way render's resolution
+SOURCES = ("brute", "traverse", "cluster")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
 # t/u/v of agreeing hits must lie within the float32 rounding bound of
@@ -59,11 +77,25 @@ def device_phase(torch):
     return name, smi
 
 
-def make_rays(torch, scene, rng, n):
-    """2^20 rays: camera rays, rays from inside the box, finite-tmax shadow
-    rays toward the light, ~10% dead lanes (tmax = -3.4e38), and padded rays
-    (tmax = -1) appended the way the JAX package pads its Pallas grid."""
-    from take_tpu_torch.core.camera import Camera, generate_rays
+def build_phase(_build, modules):
+    """nvcc for every source at once, then load each library."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    for module in modules:
+        module._lib()
+    for name, (lib, nvcc_s, log) in built.items():
+        ptxas = "; ".join(l.split("ptxas info    : ")[-1] for l in log.splitlines() if "Used" in l)
+        phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; {ptxas}")
+    phase("build", f"{len(SOURCES)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
+
+
+def make_rays(torch, scene, rng, n, lo, hi):
+    """n rays: camera rays, rays from inside the box [lo, hi], finite-tmax
+    shadow rays toward the triangle lights, ~10% dead lanes
+    (tmax = -3.4e38), and padded rays (tmax = -1) appended the way the JAX
+    package pads its Pallas grid. Returns (rays, dead mask)."""
+    from take_tpu_torch.core.camera import generate_rays
     from take_tpu_torch.geometry.intersect import _pad_rays
     from take_tpu_torch.scene.types import LATTR_E1, LATTR_E2, LATTR_V0
 
@@ -71,13 +103,12 @@ def make_rays(torch, scene, rng, n):
     n_cam, n_box = 4 * n // 10, 3 * n // 10
     n_shadow = n - n_pad - n_cam - n_box
     cam = scene.meta.camera
-    pix = rng.integers(0, RES * RES, n_cam)
-    px = torch.tensor(pix % RES, dtype=torch.float32)
-    py = torch.tensor(pix // RES, dtype=torch.float32)
+    pix = rng.integers(0, cam.width * cam.height, n_cam)
+    px = torch.tensor(pix % cam.width, dtype=torch.float32)
+    py = torch.tensor(pix // cam.width, dtype=torch.float32)
     jx, jy = (torch.tensor(rng.random(n_cam), dtype=torch.float32) for _ in range(2))
-    ro_c, rd_c = generate_rays(Camera(RES, RES, cam.lookfrom, cam.lookat, cam.up, cam.vfov), px, py, jx, jy)
+    ro_c, rd_c = generate_rays(cam, px, py, jx, jy)
 
-    lo, hi = np.array([1.0, 1.0, 1.0]), np.array([555.0, 547.0, 558.0])
     ro_b = rng.uniform(lo, hi, (n_box + n_shadow, 3))
     d = rng.normal(size=(n_box, 3))
     rd_b = d / np.linalg.norm(d, axis=1, keepdims=True)
@@ -157,16 +188,24 @@ def fp32_bounds(torch, g, prim, ro, rd):
     return 2 * et, 2 * eu, 2 * ev
 
 
-def parity_phase(torch, brute, scene, rays, dead):
+def closest_gate(torch, label, scene, k, p, rays, dead):
+    """Hold a closest-hit kernel's (t, u, v, prim) against its twin's:
+    winner index equal on >= PRIM_AGREE_MIN of the rays, every mismatch at
+    a near-tie, an edge or a range end; t/u/v of agreeing hits within the
+    float32 rounding bound; dead and padded lanes miss. Returns the max
+    |t, u, v difference| over agreeing hits, the mask of agreeing hits, and
+    the line to print."""
     g, n_tri = scene.geometry, scene.meta.n_tri
     ro, rd, tmin, tmax = rays
-    a_k, t_k, u_k, v_k, f_k, p_k = brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
-    a_p, t_p, u_p, v_p, f_p, p_p = brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
-    torch.cuda.synchronize()
+    t_k, u_k, v_k, p_k = k
+    t_p, u_p, v_p, p_p = p
+    f_k, f_p = p_k >= 0, p_p >= 0
     agree = p_k == p_p
     frac = agree.float().mean().item()
     bad = ~agree
     n_bad = int(bad.sum())
+    if frac < PRIM_AGREE_MIN:
+        raise RuntimeError(f"{label}: prim agrees on {frac:.6f} of rays only")
     if n_bad:
         idx = bad.nonzero()[:, 0]
         tie = f_k[idx] & f_p[idx] & ((t_k[idx] - t_p[idx]).abs() <= REL_T * t_p[idx].abs())
@@ -184,26 +223,33 @@ def parity_phase(torch, brute, scene, rays, dead):
     flat_frac = flat_ok.float().mean().item()
     bt, bu, bv = fp32_bounds(torch, g, p_k[both], ro[both], rd[both])
     over_bound = int(((dt > bt) | (du > bu) | (dv > bv)).sum())
-    attrs_equal = bool(torch.equal(a_k[both], a_p[both]))
-    err_closest = max(dt.max().item(), du.max().item(), dv.max().item())  # t in world units
-    dead_miss = bool((p_k[dead] == -1).all() and (p_p[dead] == -1).all()
-                     and (t_k[dead] == BIG).all())
+    err = max(dt.max().item(), du.max().item(), dv.max().item())  # t in world units
+    dead_miss = bool((p_k[dead] == -1).all() and (p_p[dead] == -1).all() and (t_k[dead] == BIG).all())
     worst = int(t_rel.argmax())
-    phase("parity", f"K1 closest: prim agrees on {frac:.6f} of {ro.shape[0]} rays, "
-          f"{n_bad} mismatches, {unexplained} not at a near-tie/edge/range end; "
-          f"agreeing hits {int(both.sum())}: {flat_frac:.6f} within rel t {REL_T} and abs u/v {ABS_UV} "
-          f"(max rel t {t_rel.max().item():.3e} at t={t_p[both][worst].item():.4g}, "
-          f"max abs u {du.max().item():.3e} v {dv.max().item():.3e}), "
-          f"{over_bound} beyond the float32 rounding bound; "
-          f"attrs equal {attrs_equal}; dead+padded lanes miss {dead_miss}")
-    if frac < PRIM_AGREE_MIN or unexplained or over_bound or not attrs_equal or not dead_miss:
-        raise RuntimeError("K1 disagrees with closest_plain")
+    line = (f"{label}: prim agrees on {frac:.6f} of {ro.shape[0]} rays, "
+            f"{n_bad} mismatches, {unexplained} not at a near-tie/edge/range end; "
+            f"agreeing hits {int(both.sum())}: {flat_frac:.6f} within rel t {REL_T} and abs u/v {ABS_UV} "
+            f"(max rel t {t_rel.max().item():.3e} at t={t_p[both][worst].item():.4g}, "
+            f"max abs u {du.max().item():.3e} v {dv.max().item():.3e}), "
+            f"{over_bound} beyond the float32 rounding bound; dead+padded lanes miss {dead_miss}")
+    if unexplained or over_bound or not dead_miss:
+        phase("parity", line)
+        raise RuntimeError(f"{label} disagrees with its plain twin")
+    return err, both, line
 
-    o_k = brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
-    o_p = brute.occluded_plain(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
-    torch.cuda.synchronize()
+
+def anyhit_gate(torch, label, scene, o_k, o_p, rays, dead):
+    """Hold an any-hit kernel's occlusion against its twin's: equal on
+    >= PRIM_AGREE_MIN of the rays, every mismatch near a decision boundary,
+    dead and padded lanes clear. Returns (error, line): the error is 1 when
+    a mismatch is not near a boundary (max |occ_kernel - occ_plain| over
+    the rays away from one), else 0."""
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    ro, rd, tmin, tmax = rays
     obad = o_k != o_p
     ofrac = 1.0 - obad.float().mean().item()
+    if ofrac < PRIM_AGREE_MIN:
+        raise RuntimeError(f"{label}: occlusion agrees on {ofrac:.6f} of rays only")
     n_obad = int(obad.sum())
     if n_obad:
         idx = obad.nonzero()[:, 0]
@@ -212,21 +258,65 @@ def parity_phase(torch, brute, scene, rays, dead):
     else:
         o_unexplained = 0
     odead = bool((~o_k[dead]).all() and (~o_p[dead]).all())
-    # max |occ_kernel - occ_plain| over the rays not at a decision boundary
-    err_anyhit = float(o_unexplained > 0)
-    phase("parity", f"K2 any-hit: occ agrees on {ofrac:.6f} of rays ({int(o_k.sum())} occluded), "
-          f"{n_obad} mismatches, {o_unexplained} not near a boundary; dead+padded lanes clear {odead}")
-    if ofrac < PRIM_AGREE_MIN or o_unexplained or not odead:
-        raise RuntimeError("K2 disagrees with occluded_plain")
+    line = (f"{label}: occ agrees on {ofrac:.6f} of rays ({int(o_k.sum())} occluded), "
+            f"{n_obad} mismatches, {o_unexplained} not near a boundary; dead+padded lanes clear {odead}")
+    phase("parity", line)
+    if o_unexplained or not odead:
+        raise RuntimeError(f"{label} disagrees with its plain twin")
+    return float(o_unexplained > 0), line
+
+
+def cbox_parity(torch, brute, scene, rays, dead):
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    a_k, t_k, u_k, v_k, _, p_k = brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
+    a_p, t_p, u_p, v_p, _, p_p = brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
+    torch.cuda.synchronize()
+    err_closest, both, line = closest_gate(torch, "K1 closest", scene, (t_k, u_k, v_k, p_k),
+                                           (t_p, u_p, v_p, p_p), rays, dead)
+    attrs_equal = bool(torch.equal(a_k[both], a_p[both]))
+    phase("parity", f"{line}; attrs equal {attrs_equal}")
+    if not attrs_equal:
+        raise RuntimeError("K1 disagrees with closest_plain")
+    o_k = brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
+    o_p = brute.occluded_plain(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
+    torch.cuda.synchronize()
+    err_anyhit, _ = anyhit_gate(torch, "K2 any-hit", scene, o_k, o_p, rays, dead)
     return err_closest, err_anyhit
 
 
-def with_res(scene, res):
+def room_parity(torch, packet, cluster, scene, rays, dead):
+    """K3 (closest, any hit), K4 and K5 against their twins. Returns the
+    max error of each, keyed by _launch.LAUNCHES name."""
+    bvh, sweep = scene.bvh, scene.geometry.tri_sweep
+    err = {}
+    for label, key, kernel, twin in (
+        ("K3 closest", "packet_closest", lambda: packet.closest(bvh, *rays),
+         lambda: packet.packet_plain(bvh, *rays)),
+        ("K4 cluster closest", "cluster_closest", lambda: cluster.closest(bvh.sup_aabb, sweep, *rays),
+         lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays)),
+    ):
+        k, p = kernel(), twin()
+        torch.cuda.synchronize()
+        err[key], _, line = closest_gate(torch, label, scene, k, p, rays, dead)
+        phase("parity", line)
+    for label, key, kernel, twin in (
+        ("K3 any-hit", "packet_anyhit", lambda: packet.occluded(bvh, *rays),
+         lambda: packet.packet_plain(bvh, *rays, any_hit=True)),
+        ("K5 cluster any-hit", "cluster_anyhit", lambda: cluster.occluded(bvh.sup_aabb, sweep, *rays),
+         lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays, any_hit=True)),
+    ):
+        o_k, o_p = kernel(), twin()
+        torch.cuda.synchronize()
+        err[key], _ = anyhit_gate(torch, label, scene, o_k, o_p, rays, dead)
+    return err
+
+
+def with_res(scene, width, height=None):
     from take_tpu_torch.core.camera import Camera
 
     cam = scene.meta.camera
-    return dataclasses.replace(scene, meta=dataclasses.replace(
-        scene.meta, camera=Camera(res, res, cam.lookfrom, cam.lookat, cam.up, cam.vfov)))
+    new = Camera(width, height or width, cam.lookfrom, cam.lookat, cam.up, cam.vfov)
+    return dataclasses.replace(scene, meta=dataclasses.replace(scene.meta, camera=new))
 
 
 def time_call(torch, fn, warmup=3, iters=20):
@@ -242,48 +332,99 @@ def time_call(torch, fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def render_counted(torch, _launch, render_image, scene, options, want, what):
+    """Render with every launch count set to 0 just before; the counts read
+    just after must be > 0 for the kernels in `want` and 0 for all others."""
+    torch.cuda.synchronize()
+    _launch.reset_launches()
+    img = render_image(scene, options)
+    torch.cuda.synchronize()
+    launches = dict(_launch.LAUNCHES)
+    if any(launches[k] == 0 for k in want) or any(v for k, v in launches.items() if k not in want):
+        raise RuntimeError(f"{what} did not run on {want} alone: {launches}")
+    if not np.isfinite(img).all():
+        raise RuntimeError(f"{what}: the image is not finite")
+    return img, {k: launches[k] for k in want}
+
+
+def mean_rel(img, ref):
+    m, r = img.mean(axis=(0, 1)), ref.mean(axis=(0, 1))
+    return float(np.max(np.abs(m - r) / np.abs(r))), m
+
+
+def active_fraction(torch, scene, options, spp):
+    """Queries on live lanes over queries launched (trace_query_counts),
+    over `spp` samples of every pixel, in batches of <= 2^20 paths."""
+    from take_tpu_torch.core import rng as prng
+    from take_tpu_torch.core.camera import generate_rays
+    from take_tpu_torch.integrator.path_tracer import trace_query_counts
+
+    cam = scene.meta.camera
+    dev = scene.background.device
+    nom = act = 0
+    with torch.inference_mode():
+        for s in range(spp):
+            for p0 in range(0, cam.width * cam.height, options.max_rays_per_pass):
+                pix = torch.arange(p0, min(p0 + options.max_rays_per_pass, cam.width * cam.height),
+                                   dtype=torch.int32, device=dev)
+                streams = prng.make_stream(options.seed, pix, torch.full_like(pix, s))
+                jx = prng.uniform(streams, prng.camera_counter(prng.DIM_CAMERA_JITTER_X))
+                jy = prng.uniform(streams, prng.camera_counter(prng.DIM_CAMERA_JITTER_Y))
+                px = (pix % cam.width).float()
+                py = torch.div(pix, cam.width, rounding_mode="floor").float()
+                ro, rd = generate_rays(cam, px, py, jx, jy)
+                n_, a_ = trace_query_counts(scene, options, ro, rd, streams)
+                nom, act = nom + n_, act + a_
+    return act / nom
+
+
+def timed_render(torch, render_image, scene, options):
+    """(seconds, Mrays/s) of a render by bench.py's metric:
+    rays = W * H * spp * (1 + 2 (max_depth + 1))."""
+    cam = scene.meta.camera
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_image(scene, options)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rays = cam.width * cam.height * options.spp * (1 + 2 * (options.max_depth + 1))
+    return dt, rays / dt / 1e6
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     name, smi = device_phase(torch)
-    if not (ROOT / "take_tpu_torch" / "__init__.py").is_file() or not SCENE.is_file():
+    if not (ROOT / "take_tpu_torch" / "__init__.py").is_file() or not SCENE.is_file() or not ROOM.is_file():
         raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
     sys.path.insert(0, str(ROOT))
-    from take_tpu_torch.core import rng as prng
-    from take_tpu_torch.core.camera import generate_rays
-    from take_tpu_torch.geometry import _build, brute
-    from take_tpu_torch.integrator.path_tracer import trace_query_counts
+    from take_tpu_torch.geometry import _build, _launch, brute, cluster, packet, traverse
+    from take_tpu_torch.geometry import bvh as bvh_build
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image
     from take_tpu_torch.scene.parse_xml import parse_scene_file
-    from take_tpu_torch.scene.types import RenderOptions
+    from take_tpu_torch.scene.types import RenderOptions, scene_from_numpy
 
-    t0 = time.perf_counter()
-    lib, nvcc_s, log = _build.build("brute")
-    brute._lib()
-    ptxas = "; ".join(l.split("ptxas info    : ")[-1] for l in log.splitlines() if "Used" in l)
-    phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s, load {time.perf_counter() - t0:.2f} s; {ptxas}")
-
+    build_phase(_build, (brute, packet, cluster))
     dev = torch.device(DEVICE)
+    out_dir = ROOT / "build" / "take_tpu_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    # ---- cbox: the brute-force path (K1/K2) ----
     scene = with_res(parse_scene_file(str(SCENE), device=dev), RES)
-    rays, dead = make_rays(torch, scene, np.random.default_rng(SEED), N_RAYS)
-    err_closest, err_anyhit = parity_phase(torch, brute, scene, rays, dead)
+    rays, dead = make_rays(torch, scene, np.random.default_rng(SEED), N_RAYS,
+                           np.array([1.0, 1.0, 1.0]), np.array([555.0, 547.0, 558.0]))
+    err_closest, err_anyhit = cbox_parity(torch, brute, scene, rays, dead)
 
     options = RenderOptions(spp=SPP, max_depth=MAX_DEPTH, seed=SEED)
-    torch.cuda.synchronize()
-    brute.reset_launches()
-    img = render_image(scene, options)
-    torch.cuda.synchronize()
-    launches = dict(brute.LAUNCHES)
-    finite = bool(np.isfinite(img).all())
-    phase("main", f"render {RES}x{RES} {SPP} spp d{MAX_DEPTH}: shape {img.shape}, finite {finite}, "
+    img, launches = render_counted(torch, _launch, render_image, scene, options,
+                                   ("closest", "anyhit"), "cbox main path")
+    phase("main", f"render {RES}x{RES} {SPP} spp d{MAX_DEPTH}: shape {img.shape}, "
           f"mean {img.mean(axis=(0, 1)).tolist()}, launches {launches}")
-    if img.shape != (RES, RES, 3) or not finite:
-        raise RuntimeError("main-path image is not finite or has the wrong shape")
-    if launches["closest"] == 0 or launches["anyhit"] == 0 or launches["closest_plain"] or launches["anyhit_plain"]:
-        raise RuntimeError(f"main path did not run on the kernels alone: {launches}")
-    out = ROOT / "build" / "take_tpu_torch" / "cbox_1024.exr"
-    out.parent.mkdir(parents=True, exist_ok=True)
+    if img.shape != (RES, RES, 3):
+        raise RuntimeError("main-path image has the wrong shape")
+    out = out_dir / "cbox_1024.exr"
     write_exr(str(out), img)
 
     small = with_res(scene, 256)
@@ -292,35 +433,15 @@ def main():
             mock.patch.object(brute, "occluded", brute.occluded_plain):
         img_p = render_image(small, options)
     torch.cuda.synchronize()
-    mk, mp = img_k.mean(axis=(0, 1)), img_p.mean(axis=(0, 1))
-    mean_rel = float(np.max(np.abs(mk - mp) / np.abs(mp)))
-    phase("main", f"256x256 kernels vs plain twins on the card: means {mk.tolist()} vs {mp.tolist()}, "
-          f"max rel {mean_rel:.3e} (limit {MEAN_REL}); wrote {out.relative_to(ROOT)}")
-    if not np.isfinite(img_p).all() or mean_rel > MEAN_REL:
+    rel, mk = mean_rel(img_k, img_p)
+    phase("main", f"256x256 kernels vs plain twins on the card: means {mk.tolist()} vs "
+          f"{img_p.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL}); "
+          f"wrote {out.relative_to(ROOT)}")
+    if not np.isfinite(img_p).all() or rel > MEAN_REL:
         raise RuntimeError("kernel render disagrees with the plain-twin render")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    render_image(scene, options)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    rays_total = RES * RES * SPP * (1 + 2 * (MAX_DEPTH + 1))
-    mrays = rays_total / dt / 1e6
-
-    nom = act = 0
-    pix = torch.arange(RES * RES, dtype=torch.int32, device=dev)
-    with torch.inference_mode():
-        for s in range(2):
-            streams = prng.make_stream(SEED, pix, torch.full_like(pix, s))
-            jx = prng.uniform(streams, prng.camera_counter(prng.DIM_CAMERA_JITTER_X))
-            jy = prng.uniform(streams, prng.camera_counter(prng.DIM_CAMERA_JITTER_Y))
-            px = (pix % RES).float()
-            py = torch.div(pix, RES, rounding_mode="floor").float()
-            ro, rd = generate_rays(scene.meta.camera, px, py, jx, jy)
-            n_, a_ = trace_query_counts(scene, options, ro, rd, streams)
-            nom, act = nom + n_, act + a_
-    active_fraction = act / nom
-
+    dt, mrays = timed_render(torch, render_image, scene, options)
+    af = active_fraction(torch, scene, options, 2)
     g, n_tri = scene.geometry, scene.meta.n_tri
     args_c = (g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
     args_o = (g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
@@ -330,10 +451,9 @@ def main():
         "anyhit": time_call(torch, lambda: brute.occluded(*args_o)),
         "anyhit_plain": time_call(torch, lambda: brute.occluded_plain(*args_o)),
     }
-    phase("times", f"render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {active_fraction:.6f}; "
+    phase("times", f"cbox render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f}; "
           f"per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
           + f"; card: {smi}")
-
     kernels = [
         dict(name="closest", route="cuda", source="take_tpu_torch/csrc/brute.cu",
              replaces="take_tpu/geometry/pallas_brute.py:77", launches=launches["closest"],
@@ -342,6 +462,109 @@ def main():
              replaces="take_tpu/geometry/pallas_brute.py:129", launches=launches["anyhit"],
              max_abs_err=err_anyhit, ms=ms["anyhit"], plain_ms=ms["anyhit_plain"]),
     ]
+    del scene, small, rays, dead, img, img_k, img_p
+
+    # ---- room: the wide-BVH path (K3; K4/K5 when forced) ----
+    t0 = time.perf_counter()
+    builder = parse_scene_file(str(ROOM), build=False)
+    t_parse = time.perf_counter() - t0
+    bvh_s = []
+    build_bvh = bvh_build.build_bvh
+
+    def timed_bvh(*a):
+        t = time.perf_counter()
+        out = build_bvh(*a)
+        bvh_s.append(time.perf_counter() - t)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(bvh_build, "build_bvh", timed_bvh):
+        tables, meta = builder.build_tables()
+    t_tables = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    room = scene_from_numpy(tables, meta, dev)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    bvh = room.bvh
+    groups = (room.geometry, room.materials, room.lights, room.textures)
+    table_bytes = sum(getattr(grp, f.name).nbytes for grp in groups for f in dataclasses.fields(grp))
+    bvh_bytes = sum(getattr(bvh, n).nbytes for n in ("node_min", "node_max", "node_child", "node_count",
+                                                       "cl_aabb", "sup_aabb", "nodes", "tris"))
+    need, have = packet.stack_bound(bvh.depth), packet._lib().tt_packet_stack_size()
+    phase("room build", f"{meta.n_tri} triangles, {meta.n_lights} lights: parse {t_parse:.2f} s, "
+          f"BVH build {bvh_s[0]:.2f} s (tables {t_tables:.2f} s in all), upload + kernel layout "
+          f"{t_upload:.2f} s; {bvh.node_child.shape[0]} nodes, wide depth {bvh.depth}, stack bound "
+          f"{need} of the kernel's {have}; {bvh.sup_aabb.shape[0]} superclusters; on the card "
+          f"{table_bytes / 2**20:.2f} MiB of scene tables + {bvh_bytes / 2**20:.2f} MiB of BVH tables")
+    if need > have:
+        raise RuntimeError("room's BVH does not fit the kernel's stack")
+
+    lo = bvh.node_min[0].amin(dim=0).cpu().numpy().astype(np.float64)
+    hi = bvh.node_max[0].amax(dim=0).cpu().numpy().astype(np.float64)
+    pad = 0.02 * (hi - lo)
+    rays, dead = make_rays(torch, room, np.random.default_rng(SEED), N_RAYS, lo + pad, hi - pad)
+    t0 = time.perf_counter()
+    errs = room_parity(torch, packet, cluster, room, rays, dead)
+    t_parity = time.perf_counter() - t0
+
+    room_opts = RenderOptions(spp=ROOM_SPP, max_depth=ROOM_DEPTH, seed=SEED)
+    cam = room.meta.camera
+    img, launches_room = render_counted(torch, _launch, render_image, room, room_opts,
+                                        ("packet_closest", "packet_anyhit"), "room main path")
+    if img.shape != (cam.height, cam.width, 3) or not img.mean() > 0:
+        raise RuntimeError(f"room image has shape {img.shape} and mean {img.mean()}")
+    out = out_dir / f"room_{cam.width}x{cam.height}.exr"
+    write_exr(str(out), img)
+    phase("main", f"room {cam.width}x{cam.height} {ROOM_SPP} spp d{ROOM_DEPTH}: shape {img.shape}, "
+          f"mean {img.mean(axis=(0, 1)).tolist()}, launches {launches_room}; wrote {out.relative_to(ROOT)}")
+
+    small = with_res(room, *ROOM_SMALL)
+    img_k, _ = render_counted(torch, _launch, render_image, small, room_opts,
+                              ("packet_closest", "packet_anyhit"), "room K3 render")
+    with mock.patch.object(traverse, "FORCE_CLUSTER", True):
+        img_c, launches_cluster = render_counted(torch, _launch, render_image, small, room_opts,
+                                                 ("cluster_closest", "cluster_anyhit"), "room K4/K5 render")
+    with mock.patch.object(packet, "closest", lambda b, *r: packet.packet_plain(b, *r)), \
+            mock.patch.object(packet, "occluded", lambda b, *r: packet.packet_plain(b, *r, any_hit=True)):
+        img_p, _ = render_counted(torch, _launch, render_image, small, room_opts,
+                                  ("packet_closest_plain", "packet_anyhit_plain"), "room twin render")
+    rel_k, mk = mean_rel(img_k, img_p)
+    rel_c, mc = mean_rel(img_c, img_p)
+    phase("main", f"room {ROOM_SMALL[0]}x{ROOM_SMALL[1]} {ROOM_SPP} spp d{ROOM_DEPTH} means: K3 {mk.tolist()}, "
+          f"K4/K5 {mc.tolist()} (launches {launches_cluster}), plain twins "
+          f"{img_p.mean(axis=(0, 1)).tolist()}; max rel vs twins K3 {rel_k:.3e}, K4/K5 {rel_c:.3e} "
+          f"(limit {MEAN_REL})")
+    if rel_k > MEAN_REL or rel_c > MEAN_REL:
+        raise RuntimeError("room kernel renders disagree with the plain-twin render")
+
+    dt_room, mrays_room = timed_render(torch, render_image, room, room_opts)
+    af_room = active_fraction(torch, room, room_opts, 1)
+    sweep = room.geometry.tri_sweep
+    ms_room = {
+        "packet_closest": time_call(torch, lambda: packet.closest(bvh, *rays), iters=10),
+        "packet_closest_plain": time_call(torch, lambda: packet.packet_plain(bvh, *rays), 1, 2),
+        "packet_anyhit": time_call(torch, lambda: packet.occluded(bvh, *rays), iters=10),
+        "packet_anyhit_plain": time_call(torch, lambda: packet.packet_plain(bvh, *rays, any_hit=True), 1, 2),
+        "cluster_closest": time_call(torch, lambda: cluster.closest(bvh.sup_aabb, sweep, *rays), iters=10),
+        "cluster_closest_plain": time_call(torch, lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays), 1, 2),
+        "cluster_anyhit": time_call(torch, lambda: cluster.occluded(bvh.sup_aabb, sweep, *rays), iters=10),
+        "cluster_anyhit_plain": time_call(
+            torch, lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays, any_hit=True), 1, 2),
+    }
+    phase("times", f"room render {dt_room:.4f} s = {mrays_room:.3f} Mrays/s; active_fraction {af_room:.6f} "
+          f"(1 spp); parity {t_parity:.1f} s; per call at N={N_RAYS}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms_room.items())
+          + f"; card: {smi}; script {time.perf_counter() - t_start:.1f} s")
+
+    for key, src, line, n in (
+        ("packet_closest", "traverse.cu", "pallas_traverse.py:88", launches_room["packet_closest"]),
+        ("packet_anyhit", "traverse.cu", "pallas_traverse.py:88", launches_room["packet_anyhit"]),
+        ("cluster_closest", "cluster.cu", "pallas_cluster.py:200", launches_cluster["cluster_closest"]),
+        ("cluster_anyhit", "cluster.cu", "pallas_cluster.py:263", launches_cluster["cluster_anyhit"]),
+    ):
+        kernels.append(dict(name=key, route="cuda", source=f"take_tpu_torch/csrc/{src}",
+                            replaces=f"take_tpu/geometry/{line}", launches=n, max_abs_err=errs[key],
+                            ms=ms_room[key], plain_ms=ms_room[f"{key}_plain"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

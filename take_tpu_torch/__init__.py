@@ -3,7 +3,8 @@
 A differentiable path tracer's forward renderer. The scene is a dataclass
 of tensors on one device, chosen at build time; plain tensor code is torch,
 and the scene queries run in hand-written CUDA kernels for Hopper
-(geometry/brute.py, csrc/). This package imports neither JAX nor take_tpu.
+(geometry/brute.py, packet.py, cluster.py; csrc/). This package imports
+neither JAX nor take_tpu.
 
 Public API:
     take_tpu_torch.load_scene(path, device=...)  -> Scene

@@ -2,9 +2,10 @@
 
 Each source compiles at first use, on the machine with the card, into a
 shared library with a plain C interface under `build/take_tpu_torch/` at
-the root of the checkout. The file name carries a hash of the source and
-the flags, so an edited source builds anew and an unchanged one loads the
-library already built. A failed build raises with nvcc's output.
+the root of the checkout. The file name carries a hash of the source, the
+shared headers (csrc/*.cuh) and the flags, so an edited source builds anew
+and an unchanged one loads the library already built. A failed build raises
+with nvcc's output.
 """
 
 import ctypes
@@ -44,7 +45,8 @@ def build(name: str) -> tuple[Path, float, str]:
     the output holds ptxas's register and shared-memory report.
     """
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
@@ -70,6 +72,10 @@ def build(name: str) -> tuple[Path, float, str]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu."""
-    lib, _, _ = build(name)
-    return ctypes.CDLL(str(lib))
+    """Build (if needed) and load csrc/<name>.cu, with the C function every
+    source defines declared: `const char* tt_error_string(int)`."""
+    path, _, _ = build(name)
+    lib = ctypes.CDLL(str(path))
+    lib.tt_error_string.argtypes = [ctypes.c_int]
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib

@@ -11,7 +11,7 @@ Dispatch is by the device of the rays: a CUDA tensor launches the kernel
 (and raises if it cannot), a CPU tensor runs the plain twin
 (`closest_plain`, `occluded_plain`), which computes the same outputs in
 torch, one [N, T] array at a time, with the affine products taken element
-by element in a fixed order. `LAUNCHES` counts what ran.
+by element in a fixed order. `_launch.LAUNCHES` counts what ran.
 """
 
 import ctypes
@@ -19,18 +19,11 @@ import functools
 
 import torch
 
-from take_tpu_torch.geometry import _build
+from take_tpu_torch.geometry import _build, _launch
 from take_tpu_torch.scene.types import ATTR_DIM
 
 BIG = 3.4e38  # t of a miss
 DW_EPS = 1e-12  # parallel-ray reject on the (u, v, w)-frame direction
-
-LAUNCHES = {"closest": 0, "anyhit": 0, "closest_plain": 0, "anyhit_plain": 0}
-
-
-def reset_launches():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +71,7 @@ def tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
 
 def closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
     """Plain twin of `closest`: same outputs, in torch."""
-    LAUNCHES["closest_plain"] += 1
+    _launch.LAUNCHES["closest_plain"] += 1
     t, u, v, ok = tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
     t_best, best = torch.where(ok, t, BIG).min(dim=1)  # first index on ties
     found = t_best < BIG
@@ -92,7 +85,7 @@ def closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
 
 def occluded_plain(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
     """Plain twin of `occluded`."""
-    LAUNCHES["anyhit_plain"] += 1
+    _launch.LAUNCHES["anyhit_plain"] += 1
     return tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)[3].any(dim=1)
 
 
@@ -111,37 +104,17 @@ def _lib():
     lib.tt_brute_closest.restype = _I
     lib.tt_brute_occluded.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P]
     lib.tt_brute_occluded.restype = _I
-    lib.tt_error_string.argtypes = [_I]
-    lib.tt_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape {shape} on {device}, "
-            f"got {x.dtype} {tuple(x.shape)} on {x.device} (contiguous={x.is_contiguous()})"
-        )
-
-
 def _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
-    device, f32 = ro.device, torch.float32
-    n = ro.shape[0]
     tpad = aff_d.shape[1] // 3
     if not 0 < n_tri <= tpad:
         raise ValueError(f"n_tri={n_tri} outside (0, {tpad}]")
-    _check("aff_o", aff_o, f32, (4, 3 * tpad), device)
-    _check("aff_d", aff_d, f32, (3, 3 * tpad), device)
-    _check("ro", ro, f32, (n, 3), device)
-    _check("rd", rd, f32, (n, 3), device)
-    _check("tmin", tmin, f32, (n,), device)
-    _check("tmax", tmax, f32, (n,), device)
+    n = _launch.check_rays(ro, rd, tmin, tmax)
+    _launch.check("aff_o", aff_o, torch.float32, (4, 3 * tpad), ro.device)
+    _launch.check("aff_d", aff_d, torch.float32, (3, 3 * tpad), ro.device)
     return n, tpad
-
-
-def _raise_on(code, what):
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: {_lib().tt_error_string(code).decode()} ({code})")
 
 
 def closest(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
@@ -159,7 +132,7 @@ def closest(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
     if not ro.is_cuda:
         return closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax)
     n, tpad = _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
-    _check("attr", attr, torch.float32, (tpad, ATTR_DIM), ro.device)
+    _launch.check("attr", attr, torch.float32, (tpad, ATTR_DIM), ro.device)
     attrs = torch.empty((n, ATTR_DIM), dtype=torch.float32, device=ro.device)
     t, u, v = (torch.empty(n, dtype=torch.float32, device=ro.device) for _ in range(3))
     prim = torch.empty(n, dtype=torch.int32, device=ro.device)
@@ -169,8 +142,8 @@ def closest(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
         ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
         attrs.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr(), stream,
     )
-    _raise_on(code, "closest-hit kernel")
-    LAUNCHES["closest"] += 1
+    _launch.raise_on(_lib(), code, "closest-hit kernel")
+    _launch.LAUNCHES["closest"] += 1
     return attrs, t, u, v, prim >= 0, prim
 
 
@@ -189,6 +162,6 @@ def occluded(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
         ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
         occ.data_ptr(), stream,
     )
-    _raise_on(code, "any-hit kernel")
-    LAUNCHES["anyhit"] += 1
+    _launch.raise_on(_lib(), code, "any-hit kernel")
+    _launch.LAUNCHES["anyhit"] += 1
     return occ

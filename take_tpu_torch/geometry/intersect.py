@@ -1,9 +1,9 @@
-"""Batched ray/scene intersection, brute-force path (port of
-take_tpu/geometry/intersect.py).
+"""Batched ray/scene intersection (port of take_tpu/geometry/intersect.py).
 
-Triangles go through the sweeps of geometry/brute.py: the CUDA kernels K1/K2
-for rays on the card, their plain twins for rays on the CPU. Spheres stay in
-plain torch, as they stay in XLA in the JAX package, and are merged here.
+Scenes with a BVH go to geometry/traverse.py. Otherwise triangles go through
+the sweeps of geometry/brute.py: the CUDA kernels K1/K2 for rays on the
+card, their plain twins for rays on the CPU. Spheres stay in plain torch,
+as they stay in XLA in the JAX package, and are merged here.
 
 Primitive semantics mirror the reference:
   * parallel-ray epsilon reject on the affine form (shape.cpp:44-110),
@@ -45,11 +45,6 @@ from take_tpu_torch.scene.types import (
 )
 
 _BIG = brute.BIG
-
-
-def _no_bvh(scene: Scene):
-    if scene.bvh is not None:
-        raise NotImplementedError("BVH scenes: slice 3")
 
 
 def _sph_t(g, ro, rd, tmin, tmax, n_sph):
@@ -106,7 +101,10 @@ def intersect_scene(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     Returns:
         Hit SoA with [N] leading axis.
     """
-    _no_bvh(scene)
+    if scene.bvh is not None:
+        from take_tpu_torch.geometry.traverse import bvh_intersect
+
+        return bvh_intersect(scene, ro, rd, tmin, tmax)
     g = scene.geometry
     N = ro.shape[0]
     n_tri = scene.meta.n_tri
@@ -223,7 +221,10 @@ def shade_sphere_hit(g, idx, ro, rd, t) -> Hit:
 
 def occluded(scene: Scene, ro, rd, tmin, tmax):
     """Any-hit query: True where something lies in [tmin, tmax]."""
-    _no_bvh(scene)
+    if scene.bvh is not None:
+        from take_tpu_torch.geometry.traverse import bvh_occluded
+
+        return bvh_occluded(scene, ro, rd, tmin, tmax)
     g = scene.geometry
     meta = scene.meta
     occ = torch.zeros(ro.shape[0], dtype=torch.bool, device=ro.device)

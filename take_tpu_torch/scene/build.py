@@ -17,6 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from take_tpu_torch.core.camera import Camera
+from take_tpu_torch.geometry import bvh as B
 from take_tpu_torch.scene import types as T
 from take_tpu_torch.scene.compute_normals import compute_vertex_normals
 
@@ -49,7 +50,8 @@ class _Mat:
 
 def _pack_triangles(np_tri, Tpad):
     """Host numpy triangle tables + the per-triangle affine intersection maps
-    (geometry/brute.py) and the packed attribute rows."""
+    (geometry/brute.py), their supercluster granules (geometry/cluster.py)
+    and the packed attribute rows."""
     tables = dict(np_tri)
     v0 = np_tri["tri_v0"]
     e1 = np_tri["tri_e1"]
@@ -68,6 +70,19 @@ def _pack_triangles(np_tri, Tpad):
         aff_d[:, cols] = Minv[:, k, :].T  # [3, T]
         aff_o[:3, cols] = Minv[:, k, :].T
         aff_o[3, cols] = -np.einsum("tj,tj->t", Minv[:, k, :], v0)
+    # transposed per-supercluster granules of the same operands: rows
+    # sup * 24 + j hold operand j of the supercluster's 512 triangles, padded
+    # with all-zero columns (rejected as parallel) to the GROUP multiple of
+    # the sup_aabb table, so every supercluster id of that table has one
+    supt = B.SUP * B.CLUSTER_K
+    n_sup_valid = B.cluster_pad(Tpad) // B.SUP
+    n_sup = max(B.GROUP, -(-n_sup_valid // B.GROUP) * B.GROUP)
+    ops = np.zeros((24, n_sup * supt))
+    for k in range(3):
+        cols = slice(k * Tpad, (k + 1) * Tpad)
+        ops[4 * k : 4 * k + 4, :Tpad] = aff_o[:, cols]
+        ops[12 + 3 * k : 15 + 3 * k, :Tpad] = aff_d[:, cols]
+    sweep = ops.reshape(24, n_sup, supt).transpose(1, 0, 2).reshape(n_sup * 24, supt)
     nlen = np.linalg.norm(nrm, axis=-1, keepdims=True)
     geo_n = nrm / np.where(nlen > 0, nlen, 1.0)
     attr = np.zeros((Tpad, T.ATTR_DIM))
@@ -86,6 +101,7 @@ def _pack_triangles(np_tri, Tpad):
     attr[:, T.ATTR_INV_AREA] = np.where(area > 0, 1.0 / np.maximum(area, 1e-30), 0.0)
     tables["tri_affine_o"] = aff_o
     tables["tri_affine_d"] = aff_d
+    tables["tri_sweep"] = sweep
     tables["tri_attr"] = attr
     tables.pop("tri_emit")
     return tables
@@ -211,9 +227,12 @@ class SceneBuilder:
     def build_tables(self, build_bvh="auto"):
         """Pack every table in host numpy, as take_tpu's SceneBuilder does.
 
-        Returns (tables, meta): float64/int64 numpy tables keyed by field
-        path ("geometry.tri_attr", ...) and the static SceneMeta. Raises
-        NotImplementedError where take_tpu would build a BVH.
+        Returns (tables, meta): numpy tables (floating or integer; the
+        upload casts them to float32/int32) keyed by field path
+        ("geometry.tri_attr", "bvh.node_min", ...) and the static
+        SceneMeta. With build_bvh (or "auto" above BVH_AUTO_MIN
+        primitives) the wide BVH is built and the triangle rows are
+        reordered into its leaf order before anything is packed.
         """
         n_tri = len(self._tris)
         n_sph = len(self._spheres)
@@ -221,8 +240,6 @@ class SceneBuilder:
         n_tex = len(self._textures)
         if build_bvh == "auto":
             build_bvh = n_tri + n_sph > BVH_AUTO_MIN
-        if build_bvh and n_tri > 0:
-            raise NotImplementedError("BVH scenes: slice 3")
 
         def pad_rows(a, n_target):
             a = np.asarray(a, np.float64)
@@ -264,7 +281,27 @@ class SceneBuilder:
             if lid >= 0:
                 emit[t_idx] = self._lights[lid]["intensity"]
         np_tri["tri_emit"] = emit
+
+        # --- BVH: built on the host, then the triangle rows are permuted
+        # into leaf order (padding rows keep their places) ---
+        bvh_tables = {}
+        if build_bvh and n_tri > 0:
+            p0 = np_tri["tri_v0"][:n_tri]
+            p1 = p0 + np_tri["tri_e1"][:n_tri]
+            p2 = p0 + np_tri["tri_e2"][:n_tri]
+            bmin = np.minimum(np.minimum(p0, p1), p2)
+            bmax = np.maximum(np.maximum(p0, p1), p2)
+            node_min, node_max, node_child, node_count, order = B.build_bvh(bmin, bmax)
+            perm = np.arange(Tpad)
+            perm[:n_tri] = order
+            np_tri = {k: v[perm] for k, v in np_tri.items()}
+            cl_aabb, sup_aabb = B.cluster_aabbs(bmin[order], bmax[order], n_tri)
+            bvh_tables = dict(zip(
+                (f"bvh.{n}" for n in T.BVH_TABLES),
+                (node_min, node_max, node_child, node_count, cl_aabb, sup_aabb),
+            ))
         tables = {f"geometry.{k}": v for k, v in _pack_triangles(np_tri, Tpad).items()}
+        tables.update(bvh_tables)
 
         Spad = max(8, -(-max(n_sph, 1) // 8) * 8)
         if n_sph:

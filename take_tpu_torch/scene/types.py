@@ -64,8 +64,9 @@ class GeometryArrays:
 
     `tri_affine_o` / `tri_affine_d` hold each triangle's affine map into its
     (u, v, w) frame, axis-major: column k * Tpad + t is row k of triangle t.
-    The JAX package's `tri_sweep` (transposed supercluster granules) feeds
-    only the BVH cluster kernel and is left out until the port has a BVH.
+    `tri_sweep` holds the same operands as transposed supercluster granules
+    for the cluster sweep (geometry/cluster.py): rows sup * 24 + j hold
+    operand j of the supercluster's 512 triangles.
     """
 
     tri_v0: Any  # [T, 3]
@@ -82,6 +83,7 @@ class GeometryArrays:
     tri_flags: Any  # [T] int32
     tri_affine_o: Any  # [4, 3T]  homogeneous origin map
     tri_affine_d: Any  # [3, 3T]  direction map
+    tri_sweep: Any  # [SupP * 24, 512], SupP a multiple of bvh.GROUP
     tri_attr: Any  # [T, ATTR_DIM] packed shading attributes
     sph_center: Any  # [S, 3]
     sph_radius: Any  # [S]
@@ -115,6 +117,33 @@ class TextureAtlas:
     data: Any  # [n, Hmax, Wmax, 3]
     width: Any  # [n] int32
     height: Any  # [n] int32
+
+
+# The BVH's scene tables, in the JAX package's BVHArrays order.
+BVH_TABLES = ("node_min", "node_max", "node_child", "node_count", "cl_aabb", "sup_aabb")
+
+
+@dataclass
+class BVHArrays:
+    """Flattened wide BVH (geometry/bvh.py), built on the host.
+
+    The first six fields are scene tables, as in take_tpu's BVHArrays. The
+    other three are derived from them once, when the scene is uploaded
+    (`scene_from_numpy`), and kept with the scene so that no query rebuilds
+    them: the tree's wide depth, which sizes the traversal stacks, and the
+    packet kernel's layout of the node and triangle tables
+    (geometry/packet.py::prep_tables).
+    """
+
+    node_min: Any  # [M, W, 3] child box minima (empty slots +3e38)
+    node_max: Any  # [M, W, 3] child box maxima (empty slots -3e38)
+    node_child: Any  # [M, W] int32: >= 0 internal node, < 0 leaf -(start + 1)
+    node_count: Any  # [M, W] int32: leaf triangle count (0 otherwise)
+    cl_aabb: Any  # [Cpad, 8] cluster boxes, all-NaN padding rows
+    sup_aabb: Any  # [SupP, 8] supercluster boxes, all-NaN padding rows
+    depth: int = dataclasses.field(default=0, compare=False)
+    nodes: Any = dataclasses.field(default=None, compare=False, repr=False)  # [M * W, 8]
+    tris: Any = dataclasses.field(default=None, compare=False, repr=False)  # [Tpad, 24]
 
 
 @dataclass(frozen=True)
@@ -156,8 +185,8 @@ class RenderOptions:
 
 @dataclass
 class Scene:
-    """The full device scene. `envmap` and `bvh` stay None until the port
-    has an environment light and a BVH."""
+    """The full device scene. `bvh` is None for brute-force scenes;
+    `envmap` stays None until the port has an environment light."""
 
     geometry: GeometryArrays
     materials: MaterialArrays
@@ -165,7 +194,7 @@ class Scene:
     textures: TextureAtlas
     background: Any  # [3] radiance returned on miss (scene.h:27)
     envmap: Optional[Any]
-    bvh: Optional[Any]
+    bvh: Optional[BVHArrays]
     meta: SceneMeta
 
 
@@ -256,25 +285,21 @@ _TABLE_GROUPS = (
     ("lights", LightArrays),
     ("textures", TextureAtlas),
 )
-# Tables of the JAX package's scene that feed kernels the port does not
-# have yet (the BVH cluster sweep); scene_from_numpy skips them.
-_UNPORTED_TABLES = ("geometry.tri_sweep",)
 
 
 def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
     """Build a Scene from numpy tables keyed by field path.
 
-    Keys are "geometry.tri_attr", "lights.attr", ..., and "background", as
-    the JAX package's Scene names its fields. Floating tables become
-    float32 and integer tables int32 on `device`. Keys under "bvh." or
-    "envmap." raise NotImplementedError; unknown keys raise KeyError.
+    Keys are "geometry.tri_attr", "bvh.node_min", "lights.attr", ..., and
+    "background", as the JAX package's Scene names its fields; the six
+    "bvh." tables come all together or not at all. Floating tables become
+    float32 and integer tables int32 on `device`. Keys under "envmap."
+    raise NotImplementedError; unknown keys raise KeyError.
     """
     tables = dict(tables)
-    for key in _UNPORTED_TABLES:
-        tables.pop(key, None)
     for key in tables:
-        if key.startswith(("bvh.", "envmap.")):
-            raise NotImplementedError(f"scene table {key}: BVH and envmap slices")
+        if key.startswith("envmap."):
+            raise NotImplementedError(f"scene table {key}: envmap slice")
 
     def upload(a):
         a = np.asarray(a)
@@ -285,8 +310,16 @@ def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
     for prefix, cls in _TABLE_GROUPS:
         names = [f.name for f in dataclasses.fields(cls)]
         groups[prefix] = cls(**{n: upload(tables.pop(f"{prefix}.{n}")) for n in names})
+    bvh = None
+    if any(key.startswith("bvh.") for key in tables):
+        from take_tpu_torch.geometry.bvh import wide_depth
+        from take_tpu_torch.geometry.packet import prep_tables
+
+        host = {n: tables.pop(f"bvh.{n}") for n in BVH_TABLES}
+        bvh = BVHArrays(**{n: upload(a) for n, a in host.items()})
+        bvh.depth = wide_depth(np.asarray(host["node_child"]))
+        bvh.nodes, bvh.tris = prep_tables(bvh, groups["geometry"])
     background = upload(tables.pop("background"))
     if tables:
         raise KeyError(f"unknown scene tables: {sorted(tables)}")
-    return Scene(background=background, envmap=None, bvh=None, meta=meta, **groups)
-
+    return Scene(background=background, envmap=None, bvh=bvh, meta=meta, **groups)

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from chip_smoke import fp32_bounds, near_boundary
-from take_tpu_torch.geometry import brute
+from take_tpu_torch.geometry import _launch, brute, cluster, packet
 from take_tpu_torch.scene.parse_xml import parse_scene_file
 
-CBOX = os.path.join(os.path.dirname(__file__), "..", "scenes", "cbox", "cbox.xml")
+SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
+CBOX = os.path.join(SCENES, "cbox", "cbox.xml")
+ROOM = os.path.join(SCENES, "room", "room.xml")
 N = 1 << 16
 
 
@@ -74,9 +76,97 @@ def test_anyhit_kernel_matches_twin(cbox_rays):
 def test_kernel_launches_are_counted_and_checked(cbox_rays):
     scene, rays = cbox_rays
     g, n_tri = scene.geometry, scene.meta.n_tri
-    brute.reset_launches()
+    _launch.reset_launches()
     brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
     brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
-    assert brute.LAUNCHES == {"closest": 1, "anyhit": 1, "closest_plain": 0, "anyhit_plain": 0}
+    assert _launch.LAUNCHES == {**dict.fromkeys(_launch.LAUNCHES, 0), "closest": 1, "anyhit": 1}
     with pytest.raises(ValueError, match="ro"):
         brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, rays[0].double(), *rays[1:])
+
+
+@pytest.fixture(scope="module")
+def room():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return parse_scene_file(ROOM, device="cuda")
+
+
+@pytest.fixture
+def room_rays(room):
+    """Rays from inside the room, random directions; 10% dead lanes, half
+    with a finite tmax."""
+    rng = np.random.default_rng(4321)
+    lo = room.bvh.node_min[0].amin(dim=0).cpu().numpy()
+    hi = room.bvh.node_max[0].amax(dim=0).cpu().numpy()
+    ro = rng.uniform(lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo), (N, 3))
+    d = rng.normal(size=(N, 3))
+    rd = d / np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(rng.random(N) < 0.5, rng.uniform(0.1, 3.0, N), np.inf)
+    tmax[rng.random(N) < 0.1] = -3.4e38
+    return [torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
+            for a in (ro, rd, np.full(N, 1e-4), tmax)]
+
+
+def _closest_agree(room, k, p, rays):
+    """Winner equal on >= 99.99% of rays and every mismatch at a near-tie
+    or an edge; t/u/v of agreeing hits within the float32 rounding bound."""
+    g, n_tri = room.geometry, room.meta.n_tri
+    agree = k[3] == p[3]
+    assert agree.float().mean().item() >= 0.9999
+    bad = (~agree).nonzero()[:, 0]
+    tie = (k[3][bad] >= 0) & (p[3][bad] >= 0) & ((k[0][bad] - p[0][bad]).abs() <= 1e-5 * p[0][bad].abs())
+    prims = torch.stack([k[3][bad], p[3][bad]], dim=1)
+    assert (tie | near_boundary(torch, g, n_tri, *(r[bad] for r in rays), prims)).all()
+    both = agree & (k[3] >= 0)
+    bt, bu, bv = fp32_bounds(torch, g, k[3][both], rays[0][both], rays[1][both])
+    for j, b in ((0, bt), (1, bu), (2, bv)):
+        assert ((k[j] - p[j]).abs()[both] <= b).all()
+    dead = rays[3] <= 0
+    assert (k[3][dead] == -1).all() and (k[0][dead] == brute.BIG).all()
+
+
+@pytest.mark.cuda
+def test_packet_kernels_match_twin(room, room_rays):
+    k = packet.closest(room.bvh, *room_rays)
+    p = packet.packet_plain(room.bvh, *room_rays)
+    torch.cuda.synchronize()
+    _closest_agree(room, k, p, room_rays)
+    o_k = packet.occluded(room.bvh, *room_rays)
+    o_p = packet.packet_plain(room.bvh, *room_rays, any_hit=True)
+    bad = (o_k != o_p).nonzero()[:, 0]
+    assert bad.numel() <= N // 10000
+    assert near_boundary(torch, room.geometry, room.meta.n_tri, *(r[bad] for r in room_rays), None).all()
+    assert not o_k[room_rays[3] <= 0].any()
+
+
+@pytest.mark.cuda
+def test_cluster_kernels_match_twin(room, room_rays):
+    sup, sweep = room.bvh.sup_aabb, room.geometry.tri_sweep
+    k = cluster.closest(sup, sweep, *room_rays)
+    p = cluster.cluster_plain(sup, sweep, *room_rays)
+    torch.cuda.synchronize()
+    _closest_agree(room, k, p, room_rays)
+    o_k = cluster.occluded(sup, sweep, *room_rays)
+    o_p = cluster.cluster_plain(sup, sweep, *room_rays, any_hit=True)
+    bad = (o_k != o_p).nonzero()[:, 0]
+    assert bad.numel() <= N // 10000
+    assert near_boundary(torch, room.geometry, room.meta.n_tri, *(r[bad] for r in room_rays), None).all()
+    assert not o_k[room_rays[3] <= 0].any()
+
+
+@pytest.mark.cuda
+def test_traversal_launches_are_counted_and_checked(room, room_rays):
+    import dataclasses
+
+    _launch.reset_launches()
+    packet.closest(room.bvh, *room_rays)
+    packet.occluded(room.bvh, *room_rays)
+    cluster.closest(room.bvh.sup_aabb, room.geometry.tri_sweep, *room_rays)
+    cluster.occluded(room.bvh.sup_aabb, room.geometry.tri_sweep, *room_rays)
+    assert _launch.LAUNCHES == {**dict.fromkeys(_launch.LAUNCHES, 0), "packet_closest": 1,
+                               "packet_anyhit": 1, "cluster_closest": 1, "cluster_anyhit": 1}
+    deep = dataclasses.replace(room.bvh, depth=100)  # needs a stack of 701 entries
+    with pytest.raises(RuntimeError, match="stack"):
+        packet.closest(deep, *room_rays)
+    with pytest.raises(ValueError, match="tri_sweep"):
+        cluster.closest(room.bvh.sup_aabb, room.geometry.tri_sweep[:24], *room_rays)

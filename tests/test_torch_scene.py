@@ -18,11 +18,11 @@ from tests.torch_parity import CBOX, port_builder, port_meta, port_scene, tables
 
 
 def _assert_tables_equal(port, jax_scene):
-    """Every port table equals take_tpu's exactly, in dtype, shape and bits;
-    take_tpu's only extra table is the BVH cluster kernel's tri_sweep."""
+    """Every port table equals take_tpu's exactly, in dtype, shape and bits,
+    and neither package has a table the other lacks."""
     got = tables(port)
     want = tables(jax_scene)
-    assert set(want) - set(got) == {"geometry.tri_sweep"}
+    assert set(want) == set(got)
     for key, value in got.items():
         assert value.dtype == want[key].dtype, key
         np.testing.assert_array_equal(value, want[key], err_msg=key)
@@ -53,8 +53,7 @@ def test_scene_from_numpy_round_trips():
     port = port_scene(jax_scene)
     got = tables(port)
     for key, value in tables(jax_scene).items():
-        if key != "geometry.tri_sweep":
-            np.testing.assert_array_equal(got[key], value, err_msg=key)
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
     again = scene_from_numpy(got, port.meta, "cpu")
     for key, value in tables(again).items():
         np.testing.assert_array_equal(value, got[key], err_msg=key)
@@ -65,18 +64,25 @@ def test_scene_from_numpy_refuses_unknown_and_unported_tables():
     with pytest.raises(KeyError):
         scene_from_numpy({**packed, "geometry.bogus": np.zeros(1)}, meta, "cpu")
     with pytest.raises(NotImplementedError):
-        scene_from_numpy({**packed, "bvh.node_min": np.zeros(1)}, meta, "cpu")
+        scene_from_numpy({**packed, "envmap.data": np.zeros(1)}, meta, "cpu")
 
 
 def test_bvh_sized_scene_raises():
-    b = SceneBuilder()
+    """A grid mesh above the 256-primitive "auto" threshold builds a BVH
+    scene (it once raised), with every table equal to take_tpu's."""
+    from take_tpu.scene.build import SceneBuilder as JaxBuilder
+
     grid = np.array([[x, y, 0.0] for x in range(12) for y in range(12)])
     idx = np.array([[r * 12 + c, r * 12 + c + 1, (r + 1) * 12 + c]
                     for r in range(11) for c in range(11)] * 3)
-    b.add_mesh(grid, idx, b.add_material(0))
-    with pytest.raises(NotImplementedError, match="BVH"):
-        b.build()
-    assert b.build_tables(build_bvh=False)[1].n_tri == idx.shape[0]
+    scenes = []
+    for b in (SceneBuilder(), JaxBuilder()):
+        b.add_mesh(grid, idx, b.add_material(0))
+        scenes.append(b.build())
+    port, jax_scene = scenes
+    assert port.bvh is not None and port.meta.n_tri == idx.shape[0]
+    _assert_tables_equal(port, jax_scene)
+    assert port.bvh.depth >= 1 and port.bvh.nodes.shape == (port.bvh.node_child.shape[0] * 8, 8)
 
 
 def test_envmap_scene_raises(tmp_path):

@@ -23,6 +23,9 @@ def tables(scene) -> dict:
         g = getattr(scene, group)
         for f in dataclasses.fields(g):
             out[f"{group}.{f.name}"] = np.asarray(getattr(g, f.name))
+    if scene.bvh is not None:
+        for name in tt.BVH_TABLES:
+            out[f"bvh.{name}"] = np.asarray(getattr(scene.bvh, name))
     out["background"] = np.asarray(scene.background)
     return out
 
@@ -49,6 +52,15 @@ def port_builder(scene_fn, *args, **kwargs):
     with mock.patch.object(jscenes, "SceneBuilder", tbuild.SceneBuilder), \
             mock.patch.object(jscenes, "Camera", tcam.Camera):
         return scene_fn(*args, **kwargs)
+
+
+def port_soup(n_tri, **kwargs):
+    """tests/test_bvh.py's random triangle soup, built by the port."""
+    import tests.test_bvh as jbvh
+
+    with mock.patch.object(jbvh, "SceneBuilder", tbuild.SceneBuilder), \
+            mock.patch.object(jbvh, "Camera", tcam.Camera):
+        return jbvh.random_soup_scene(n_tri, **kwargs)
 
 
 def with_res(scene, res, camera_cls):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke check of take_tpu_torch on one CUDA card: `python3 chip_smoke.py`.
 
-Drives the port's two main paths on the card, in phases; each phase prints
-one line and any failure raises, so the exit code is non-zero:
+Drives the port's main paths on the card, in phases; each phase prints one
+line and any failure raises, so the exit code is non-zero:
 
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
@@ -16,22 +16,35 @@ one line and any failure raises, so the exit code is non-zero:
   5. times: the render's Mrays/s (bench.py's metric), active_fraction, and
      each kernel's per-call time beside its twin's;
   room (scenes/room/room.xml, 1920x1080, 4 of the published 1024 spp,
-  max_depth 6, seed 0; the wide-BVH path, K3 and, forced, K4/K5):
+  max_depth 6, seed 0; the wide-BVH path, K3 and, forced, K4/K5 and K6):
   6. room build: parse, BVH build, nodes, wide depth, stack bound, table
      bytes on the card;
-  7. parity: K3 (closest and any hit), K4 and K5 against their plain twins
-     on 2^20 room rays (camera, incoherent from inside the room, shadow
-     rays toward the light, dead lanes, a padded tail);
-  8. main: render_image through K3 alone (launch counters), then at
-     192x108 through K3, through K4/K5 (traverse.FORCE_CLUSTER) and through
-     the plain twins, whose image means must agree;
-  9. times: as in 5, for room and K3/K4/K5.
+  7. parity: K3 (closest and any hit), K4, K5 and K6 (closest and any hit)
+     against their plain twins on 2^20 room rays (camera, incoherent from
+     inside the room, shadow rays toward the light, dead lanes, a padded
+     tail);
+  8. main: render_image through K3 alone, then under traverse.FORCE_SWEEP
+     through K6 (closest hits) and K3 (any hits) alone (launch counters);
+     at 192x108 through K3, K4/K5 (FORCE_CLUSTER), K6 and the plain twins,
+     whose image means must agree;
+  9. times: as in 5, for both room renders and K3/K4/K5/K6;
+  mis (scenes/mis/mis.xml at its published 512x512, 128 spp, max_depth 6;
+  blinn_microfacet plates and sphere lights on the brute path, K1/K2):
+  10. main: render_image through K1/K2 alone, then at 128x128 against the
+      plain twins; times;
+  textured (scenes/textured/textured.xml at its published 512x512, 64 spp,
+  max_depth 6; an open BVH scene, which the default policy sends through
+  the wavefront-refill loop, on K3):
+  11. main: render_image through the refill loop and K3 alone, then at
+      128x128 against the scan loop (integrator "mis_scan"); times, with
+      the refill loop's active_fraction.
 
 It then prints the kernels' JSON line and, last, the device JSON line. It
 fails without a CUDA device, and when run outside a checkout of the repo.
 """
 
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -45,10 +58,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "scenes" / "cbox" / "cbox.xml"
 ROOM = ROOT / "scenes" / "room" / "room.xml"
+MIS = ROOT / "scenes" / "mis" / "mis.xml"
+TEXTURED = ROOT / "scenes" / "textured" / "textured.xml"
 RES, SPP, MAX_DEPTH, SEED = 1024, 16, 4, 0
 ROOM_SPP, ROOM_DEPTH = 4, 6  # room at its published 1920x1080; spp cut from 1024
-ROOM_SMALL = (192, 108)  # the three-way render's resolution
-SOURCES = ("brute", "traverse", "cluster")
+ROOM_SMALL = (192, 108)  # the four-way render's resolution
+MIS_SPP, MIS_DEPTH, MIS_SMALL = 128, 6, 128  # mis and textured at their published
+TEX_SPP, TEX_DEPTH, TEX_SMALL = 64, 6, 128  # 512x512, spp and depth
+SOURCES = ("brute", "traverse", "cluster", "sweep")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
 # t/u/v of agreeing hits must lie within the float32 rounding bound of
@@ -284,16 +301,18 @@ def cbox_parity(torch, brute, scene, rays, dead):
     return err_closest, err_anyhit
 
 
-def room_parity(torch, packet, cluster, scene, rays, dead):
-    """K3 (closest, any hit), K4 and K5 against their twins. Returns the
-    max error of each, keyed by _launch.LAUNCHES name."""
-    bvh, sweep = scene.bvh, scene.geometry.tri_sweep
+def room_parity(torch, packet, cluster, sweep, scene, rays, dead):
+    """K3 (closest, any hit), K4, K5 and K6 (closest, any hit) against their
+    twins. Returns the max error of each, keyed by _launch.LAUNCHES name."""
+    bvh, n_tri = scene.bvh, scene.meta.n_tri
     err = {}
     for label, key, kernel, twin in (
         ("K3 closest", "packet_closest", lambda: packet.closest(bvh, *rays),
          lambda: packet.packet_plain(bvh, *rays)),
-        ("K4 cluster closest", "cluster_closest", lambda: cluster.closest(bvh.sup_aabb, sweep, *rays),
-         lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays)),
+        ("K4 cluster closest", "cluster_closest", lambda: cluster.closest(bvh.sup_aabb, bvh.tris, *rays),
+         lambda: cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays)),
+        ("K6 sweep closest", "sweep_closest", lambda: sweep.closest(bvh.cl_aabb, bvh.tris, n_tri, *rays),
+         lambda: sweep.sweep_plain(bvh.cl_aabb, bvh.tris, n_tri, *rays)),
     ):
         k, p = kernel(), twin()
         torch.cuda.synchronize()
@@ -302,8 +321,10 @@ def room_parity(torch, packet, cluster, scene, rays, dead):
     for label, key, kernel, twin in (
         ("K3 any-hit", "packet_anyhit", lambda: packet.occluded(bvh, *rays),
          lambda: packet.packet_plain(bvh, *rays, any_hit=True)),
-        ("K5 cluster any-hit", "cluster_anyhit", lambda: cluster.occluded(bvh.sup_aabb, sweep, *rays),
-         lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays, any_hit=True)),
+        ("K5 cluster any-hit", "cluster_anyhit", lambda: cluster.occluded(bvh.sup_aabb, bvh.tris, *rays),
+         lambda: cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays, any_hit=True)),
+        ("K6 sweep any-hit", "sweep_anyhit", lambda: sweep.occluded(bvh.cl_aabb, bvh.tris, n_tri, *rays),
+         lambda: sweep.sweep_plain(bvh.cl_aabb, bvh.tris, n_tri, *rays, any_hit=True)),
     ):
         o_k, o_p = kernel(), twin()
         torch.cuda.synchronize()
@@ -378,6 +399,24 @@ def active_fraction(torch, scene, options, spp):
     return act / nom
 
 
+def wavefront_active_fraction(torch, scene, options):
+    """Queries on occupied lanes over queries launched by the refill loop
+    (trace_wavefront's counts) over one pass of the render: its first
+    max_rays_per_pass paths, pixel-major as render_pass lays them out."""
+    from take_tpu_torch.integrator.wavefront import trace_wavefront
+
+    cam = scene.meta.camera
+    n_pix = cam.width * cam.height
+    k = max(1, min(options.spp, options.max_rays_per_pass // n_pix))
+    rows = max(1, options.max_rays_per_pass // (cam.width * k))
+    pix = torch.arange(min(rows * cam.width, n_pix), dtype=torch.int32, device=scene.background.device)
+    samp = torch.arange(k, dtype=torch.int32, device=pix.device)
+    with torch.inference_mode():
+        _, nom, act = trace_wavefront(scene, options, pix.repeat_interleave(k), samp.repeat(pix.shape[0]),
+                                      cam.width, with_counts=True)
+    return act / nom
+
+
 def timed_render(torch, render_image, scene, options):
     """(seconds, Mrays/s) of a render by bench.py's metric:
     rays = W * H * spp * (1 + 2 (max_depth + 1))."""
@@ -391,27 +430,15 @@ def timed_render(torch, render_image, scene, options):
     return dt, rays / dt / 1e6
 
 
-def main():
-    import torch
-
-    t_start = time.perf_counter()
-    name, smi = device_phase(torch)
-    if not (ROOT / "take_tpu_torch" / "__init__.py").is_file() or not SCENE.is_file() or not ROOM.is_file():
-        raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
-    sys.path.insert(0, str(ROOT))
-    from take_tpu_torch.geometry import _build, _launch, brute, cluster, packet, traverse
-    from take_tpu_torch.geometry import bvh as bvh_build
+def cbox_cell(torch, dev, out_dir):
+    """cbox: K1/K2 parity, the 1024x1024 render through K1/K2 alone, the
+    256x256 kernels-vs-twins check, times. Returns the kernels' entries."""
+    from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image
     from take_tpu_torch.scene.parse_xml import parse_scene_file
-    from take_tpu_torch.scene.types import RenderOptions, scene_from_numpy
+    from take_tpu_torch.scene.types import RenderOptions
 
-    build_phase(_build, (brute, packet, cluster))
-    dev = torch.device(DEVICE)
-    out_dir = ROOT / "build" / "take_tpu_torch"
-    out_dir.mkdir(parents=True, exist_ok=True)
-
-    # ---- cbox: the brute-force path (K1/K2) ----
     scene = with_res(parse_scene_file(str(SCENE), device=dev), RES)
     rays, dead = make_rays(torch, scene, np.random.default_rng(SEED), N_RAYS,
                            np.array([1.0, 1.0, 1.0]), np.array([555.0, 547.0, 558.0]))
@@ -452,9 +479,8 @@ def main():
         "anyhit_plain": time_call(torch, lambda: brute.occluded_plain(*args_o)),
     }
     phase("times", f"cbox render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f}; "
-          f"per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-          + f"; card: {smi}")
-    kernels = [
+          f"per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return [
         dict(name="closest", route="cuda", source="take_tpu_torch/csrc/brute.cu",
              replaces="take_tpu/geometry/pallas_brute.py:77", launches=launches["closest"],
              max_abs_err=err_closest, ms=ms["closest"], plain_ms=ms["closest_plain"]),
@@ -462,9 +488,20 @@ def main():
              replaces="take_tpu/geometry/pallas_brute.py:129", launches=launches["anyhit"],
              max_abs_err=err_anyhit, ms=ms["anyhit"], plain_ms=ms["anyhit_plain"]),
     ]
-    del scene, small, rays, dead, img, img_k, img_p
 
-    # ---- room: the wide-BVH path (K3; K4/K5 when forced) ----
+
+def room_cell(torch, dev, out_dir):
+    """room: build, K3/K4/K5/K6 parity, the 1920x1080 renders through K3
+    alone and through K6 (FORCE_SWEEP) with K3's any hit, the 192x108
+    four-way check, times. Returns the kernels' entries."""
+    from take_tpu_torch.geometry import _launch, cluster, packet, sweep, traverse
+    from take_tpu_torch.geometry import bvh as bvh_build
+    from take_tpu_torch.scene.types import scene_from_numpy
+    from take_tpu_torch.io.exr import write_exr
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions
+
     t0 = time.perf_counter()
     builder = parse_scene_file(str(ROOM), build=False)
     t_parse = time.perf_counter() - t0
@@ -487,15 +524,20 @@ def main():
     t_upload = time.perf_counter() - t0
     bvh = room.bvh
     groups = (room.geometry, room.materials, room.lights, room.textures)
-    table_bytes = sum(getattr(grp, f.name).nbytes for grp in groups for f in dataclasses.fields(grp))
+    tensors = [getattr(grp, f.name) for grp in groups for f in dataclasses.fields(grp)]
+    table_bytes = sum(x.nbytes for x in tensors if x.is_cuda)
+    host_bytes = sum(x.nbytes for x in tensors if not x.is_cuda)
     bvh_bytes = sum(getattr(bvh, n).nbytes for n in ("node_min", "node_max", "node_child", "node_count",
                                                        "cl_aabb", "sup_aabb", "nodes", "tris"))
     need, have = packet.stack_bound(bvh.depth), packet._lib().tt_packet_stack_size()
     phase("room build", f"{meta.n_tri} triangles, {meta.n_lights} lights: parse {t_parse:.2f} s, "
           f"BVH build {bvh_s[0]:.2f} s (tables {t_tables:.2f} s in all), upload + kernel layout "
           f"{t_upload:.2f} s; {bvh.node_child.shape[0]} nodes, wide depth {bvh.depth}, stack bound "
-          f"{need} of the kernel's {have}; {bvh.sup_aabb.shape[0]} superclusters; on the card "
-          f"{table_bytes / 2**20:.2f} MiB of scene tables + {bvh_bytes / 2**20:.2f} MiB of BVH tables")
+          f"{need} of the kernel's {have}; {bvh.cl_aabb.shape[0]} clusters (the sweep kernel holds "
+          f"{sweep._lib().tt_sweep_max_clusters()}), {bvh.sup_aabb.shape[0]} superclusters; on the card "
+          f"{table_bytes / 2**20:.2f} MiB of scene tables + {bvh_bytes / 2**20:.2f} MiB of BVH tables; "
+          f"kept on the host {host_bytes / 2**20:.2f} MiB (geometry.tri_sweep, which K4/K5 no longer read: "
+          f"{(table_bytes + host_bytes) / 2**20:.2f} MiB of scene tables on the card when they did)")
     if need > have:
         raise RuntimeError("room's BVH does not fit the kernel's stack")
 
@@ -504,7 +546,7 @@ def main():
     pad = 0.02 * (hi - lo)
     rays, dead = make_rays(torch, room, np.random.default_rng(SEED), N_RAYS, lo + pad, hi - pad)
     t0 = time.perf_counter()
-    errs = room_parity(torch, packet, cluster, room, rays, dead)
+    errs = room_parity(torch, packet, cluster, sweep, room, rays, dead)
     t_parity = time.perf_counter() - t0
 
     room_opts = RenderOptions(spp=ROOM_SPP, max_depth=ROOM_DEPTH, seed=SEED)
@@ -517,6 +559,14 @@ def main():
     write_exr(str(out), img)
     phase("main", f"room {cam.width}x{cam.height} {ROOM_SPP} spp d{ROOM_DEPTH}: shape {img.shape}, "
           f"mean {img.mean(axis=(0, 1)).tolist()}, launches {launches_room}; wrote {out.relative_to(ROOT)}")
+    with mock.patch.object(traverse, "FORCE_SWEEP", True):
+        img_s, launches_sweep = render_counted(torch, _launch, render_image, room, room_opts,
+                                               ("sweep_closest", "packet_anyhit"), "room K6 path")
+    rel_s, _ = mean_rel(img_s, img)
+    phase("main", f"room {cam.width}x{cam.height} {ROOM_SPP} spp d{ROOM_DEPTH} under FORCE_SWEEP: mean "
+          f"{img_s.mean(axis=(0, 1)).tolist()}, max rel vs the K3 route {rel_s:.3e}, launches {launches_sweep}")
+    if rel_s > MEAN_REL:
+        raise RuntimeError("room K6 render disagrees with the K3 render")
 
     small = with_res(room, *ROOM_SMALL)
     img_k, _ = render_counted(torch, _launch, render_image, small, room_opts,
@@ -524,47 +574,169 @@ def main():
     with mock.patch.object(traverse, "FORCE_CLUSTER", True):
         img_c, launches_cluster = render_counted(torch, _launch, render_image, small, room_opts,
                                                  ("cluster_closest", "cluster_anyhit"), "room K4/K5 render")
+    with mock.patch.object(traverse, "FORCE_SWEEP", True):
+        img_6, _ = render_counted(torch, _launch, render_image, small, room_opts,
+                                  ("sweep_closest", "packet_anyhit"), "room K6 render")
     with mock.patch.object(packet, "closest", lambda b, *r: packet.packet_plain(b, *r)), \
             mock.patch.object(packet, "occluded", lambda b, *r: packet.packet_plain(b, *r, any_hit=True)):
         img_p, _ = render_counted(torch, _launch, render_image, small, room_opts,
                                   ("packet_closest_plain", "packet_anyhit_plain"), "room twin render")
-    rel_k, mk = mean_rel(img_k, img_p)
-    rel_c, mc = mean_rel(img_c, img_p)
-    phase("main", f"room {ROOM_SMALL[0]}x{ROOM_SMALL[1]} {ROOM_SPP} spp d{ROOM_DEPTH} means: K3 {mk.tolist()}, "
-          f"K4/K5 {mc.tolist()} (launches {launches_cluster}), plain twins "
-          f"{img_p.mean(axis=(0, 1)).tolist()}; max rel vs twins K3 {rel_k:.3e}, K4/K5 {rel_c:.3e} "
-          f"(limit {MEAN_REL})")
-    if rel_k > MEAN_REL or rel_c > MEAN_REL:
+    rel = {k: mean_rel(im, img_p) for k, im in (("K3", img_k), ("K4/K5", img_c), ("K6", img_6))}
+    phase("main", f"room {ROOM_SMALL[0]}x{ROOM_SMALL[1]} {ROOM_SPP} spp d{ROOM_DEPTH} means: "
+          + ", ".join(f"{k} {v[1].tolist()}" for k, v in rel.items())
+          + f" (K4/K5 launches {launches_cluster}), plain twins {img_p.mean(axis=(0, 1)).tolist()}; max rel vs "
+          f"twins " + ", ".join(f"{k} {v[0]:.3e}" for k, v in rel.items()) + f" (limit {MEAN_REL})")
+    if any(v[0] > MEAN_REL for v in rel.values()):
         raise RuntimeError("room kernel renders disagree with the plain-twin render")
 
     dt_room, mrays_room = timed_render(torch, render_image, room, room_opts)
+    with mock.patch.object(traverse, "FORCE_SWEEP", True):
+        dt_sweep, mrays_sweep = timed_render(torch, render_image, room, room_opts)
     af_room = active_fraction(torch, room, room_opts, 1)
-    sweep = room.geometry.tri_sweep
-    ms_room = {
+    sup, tris, cl, n_tri = bvh.sup_aabb, bvh.tris, bvh.cl_aabb, room.meta.n_tri
+    ms = {
         "packet_closest": time_call(torch, lambda: packet.closest(bvh, *rays), iters=10),
         "packet_closest_plain": time_call(torch, lambda: packet.packet_plain(bvh, *rays), 1, 2),
         "packet_anyhit": time_call(torch, lambda: packet.occluded(bvh, *rays), iters=10),
         "packet_anyhit_plain": time_call(torch, lambda: packet.packet_plain(bvh, *rays, any_hit=True), 1, 2),
-        "cluster_closest": time_call(torch, lambda: cluster.closest(bvh.sup_aabb, sweep, *rays), iters=10),
-        "cluster_closest_plain": time_call(torch, lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays), 1, 2),
-        "cluster_anyhit": time_call(torch, lambda: cluster.occluded(bvh.sup_aabb, sweep, *rays), iters=10),
-        "cluster_anyhit_plain": time_call(
-            torch, lambda: cluster.cluster_plain(bvh.sup_aabb, sweep, *rays, any_hit=True), 1, 2),
+        "cluster_closest": time_call(torch, lambda: cluster.closest(sup, tris, *rays), iters=10),
+        "cluster_closest_plain": time_call(torch, lambda: cluster.cluster_plain(sup, tris, *rays), 1, 2),
+        "cluster_anyhit": time_call(torch, lambda: cluster.occluded(sup, tris, *rays), iters=10),
+        "cluster_anyhit_plain": time_call(torch, lambda: cluster.cluster_plain(sup, tris, *rays, any_hit=True),
+                                          1, 2),
+        "sweep_closest": time_call(torch, lambda: sweep.closest(cl, tris, n_tri, *rays), iters=10),
+        "sweep_closest_plain": time_call(torch, lambda: sweep.sweep_plain(cl, tris, n_tri, *rays), 1, 2),
+        "sweep_anyhit": time_call(torch, lambda: sweep.occluded(cl, tris, n_tri, *rays), iters=10),
+        "sweep_anyhit_plain": time_call(torch, lambda: sweep.sweep_plain(cl, tris, n_tri, *rays, any_hit=True),
+                                        1, 2),
     }
-    phase("times", f"room render {dt_room:.4f} s = {mrays_room:.3f} Mrays/s; active_fraction {af_room:.6f} "
-          f"(1 spp); parity {t_parity:.1f} s; per call at N={N_RAYS}: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms_room.items())
-          + f"; card: {smi}; script {time.perf_counter() - t_start:.1f} s")
-
-    for key, src, line, n in (
-        ("packet_closest", "traverse.cu", "pallas_traverse.py:88", launches_room["packet_closest"]),
-        ("packet_anyhit", "traverse.cu", "pallas_traverse.py:88", launches_room["packet_anyhit"]),
-        ("cluster_closest", "cluster.cu", "pallas_cluster.py:200", launches_cluster["cluster_closest"]),
-        ("cluster_anyhit", "cluster.cu", "pallas_cluster.py:263", launches_cluster["cluster_anyhit"]),
+    phase("times", f"room render {dt_room:.4f} s = {mrays_room:.3f} Mrays/s, under FORCE_SWEEP "
+          f"{dt_sweep:.4f} s = {mrays_sweep:.3f} Mrays/s; active_fraction {af_room:.6f} (1 spp); parity "
+          f"{t_parity:.1f} s; per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    launches = {**launches_room, **launches_cluster, **launches_sweep, "sweep_anyhit": 0}
+    entries = []
+    for key, src, line in (
+        ("packet_closest", "traverse.cu", "pallas_traverse.py:88"),
+        ("packet_anyhit", "traverse.cu", "pallas_traverse.py:88"),
+        ("cluster_closest", "cluster.cu", "pallas_cluster.py:200"),
+        ("cluster_anyhit", "cluster.cu", "pallas_cluster.py:263"),
+        ("sweep_closest", "sweep.cu", "pallas_sweep.py:69"),
+        ("sweep_anyhit", "sweep.cu", "pallas_sweep.py:69"),
     ):
-        kernels.append(dict(name=key, route="cuda", source=f"take_tpu_torch/csrc/{src}",
-                            replaces=f"take_tpu/geometry/{line}", launches=n, max_abs_err=errs[key],
-                            ms=ms_room[key], plain_ms=ms_room[f"{key}_plain"]))
+        entries.append(dict(name=key, route="cuda", source=f"take_tpu_torch/csrc/{src}",
+                            replaces=f"take_tpu/geometry/{line}", launches=launches[key],
+                            max_abs_err=errs[key], ms=ms[key], plain_ms=ms[f"{key}_plain"]))
+    return entries
+
+
+def mis_cell(torch, dev, out_dir):
+    """mis (blinn_microfacet plates, sphere lights; the brute path): the
+    published 512x512, 128 spp, d6 render through K1/K2 alone, the 128x128
+    kernels-vs-twins check, times."""
+    from take_tpu_torch.geometry import _launch, brute
+    from take_tpu_torch.io.exr import write_exr
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions
+
+    scene = parse_scene_file(str(MIS), device=dev)
+    cam = scene.meta.camera
+    options = RenderOptions(spp=MIS_SPP, max_depth=MIS_DEPTH, seed=SEED)
+    if scene.bvh is not None:
+        raise RuntimeError("mis should take the brute path")
+    img, launches = render_counted(torch, _launch, render_image, scene, options,
+                                   ("closest", "anyhit"), "mis main path")
+    if img.shape != (cam.height, cam.width, 3) or not img.mean() > 0:
+        raise RuntimeError(f"mis image has shape {img.shape} and mean {img.mean()}")
+    out = out_dir / f"mis_{cam.width}.exr"
+    write_exr(str(out), img)
+    phase("main", f"mis {cam.width}x{cam.height} {MIS_SPP} spp d{MIS_DEPTH}: mean "
+          f"{img.mean(axis=(0, 1)).tolist()}, launches {launches}; wrote {out.relative_to(ROOT)}")
+    small = with_res(scene, MIS_SMALL)
+    img_k = render_image(small, options)
+    with mock.patch.object(brute, "closest", brute.closest_plain), \
+            mock.patch.object(brute, "occluded", brute.occluded_plain):
+        img_p, _ = render_counted(torch, _launch, render_image, small, options,
+                                  ("closest_plain", "anyhit_plain"), "mis twin render")
+    rel, mk = mean_rel(img_k, img_p)
+    phase("main", f"mis {MIS_SMALL}x{MIS_SMALL} kernels vs plain twins: means {mk.tolist()} vs "
+          f"{img_p.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL})")
+    if rel > MEAN_REL:
+        raise RuntimeError("mis kernel render disagrees with the plain-twin render")
+    dt, mrays = timed_render(torch, render_image, scene, options)
+    af = active_fraction(torch, scene, options, 1)
+    phase("times", f"mis render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} (1 spp)")
+
+
+def textured_cell(torch, dev, out_dir):
+    """textured (an open BVH scene, image texture): the published 512x512,
+    64 spp, d6 render with the default policy, so through the refill loop
+    and K3 alone; a reduced-resolution check of the refill loop against
+    the scan loop; times."""
+    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.integrator import wavefront
+    from take_tpu_torch.io.exr import write_exr
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")  # the package's `render` is a function
+    scene = parse_scene_file(str(TEXTURED), device=dev)
+    cam = scene.meta.camera
+    options = RenderOptions(spp=TEX_SPP, max_depth=TEX_DEPTH, seed=SEED)
+    if not render.use_wavefront_policy(scene, options):
+        raise RuntimeError("the default policy should pick the refill loop for textured")
+    passes = []
+
+    def counted_wavefront(*a, **k):
+        passes.append(a[2].shape[0])
+        return wavefront.trace_wavefront(*a, **k)
+
+    with mock.patch.object(render, "trace_wavefront", counted_wavefront):
+        img, launches = render_counted(torch, _launch, render_image, scene, options,
+                                       ("packet_closest", "packet_anyhit"), "textured main path")
+    if not passes or img.shape != (cam.height, cam.width, 3) or not img.mean() > 0:
+        raise RuntimeError(f"textured: {len(passes)} refill passes, image {img.shape}, mean {img.mean()}")
+    out = out_dir / f"textured_{cam.width}.exr"
+    write_exr(str(out), img)
+    phase("main", f"textured {cam.width}x{cam.height} {TEX_SPP} spp d{TEX_DEPTH}: {len(passes)} passes of the "
+          f"refill loop (wave {wavefront.WAVE_SIZE} lanes), mean {img.mean(axis=(0, 1)).tolist()}, "
+          f"launches {launches}; wrote {out.relative_to(ROOT)}")
+    small = with_res(scene, TEX_SMALL)
+    img_w = render_image(small, options)
+    img_s = render_image(small, dataclasses.replace(options, integrator="mis_scan"))
+    rel, mw = mean_rel(img_w, img_s)
+    phase("main", f"textured {TEX_SMALL}x{TEX_SMALL} refill loop vs scan loop: means {mw.tolist()} vs "
+          f"{img_s.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL})")
+    if not np.isfinite(img_s).all() or rel > MEAN_REL:
+        raise RuntimeError("the refill loop disagrees with the scan loop")
+    dt, mrays = timed_render(torch, render_image, scene, options)
+    af = wavefront_active_fraction(torch, scene, options)
+    phase("times", f"textured render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} "
+          f"(refill loop, one pass)")
+
+
+def main():
+    import torch
+
+    t_start = time.perf_counter()
+    name, smi = device_phase(torch)
+    if not (ROOT / "take_tpu_torch" / "__init__.py").is_file() or not all(
+            p.is_file() for p in (SCENE, ROOM, MIS, TEXTURED)):
+        raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
+    sys.path.insert(0, str(ROOT))
+    from take_tpu_torch.geometry import _build, brute, cluster, packet, sweep
+
+    build_phase(_build, (brute, packet, cluster, sweep))
+    dev = torch.device(DEVICE)
+    out_dir = ROOT / "build" / "take_tpu_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    kernels = cbox_cell(torch, dev, out_dir)
+    kernels += room_cell(torch, dev, out_dir)
+    mis_cell(torch, dev, out_dir)
+    textured_cell(torch, dev, out_dir)
+    phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

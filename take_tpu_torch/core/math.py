@@ -9,6 +9,7 @@ import torch
 C_PI = 3.14159265358979323846
 C_INVPI = 1.0 / C_PI
 C_TWOPI = 2.0 * C_PI
+C_INVTWOPI = 1.0 / C_TWOPI
 
 
 def dot(a, b):
@@ -49,6 +50,11 @@ def to_world(n, v):
     x = torch.where(s, x_sing, x_reg)
     y = torch.where(s, y_sing, y_reg)
     return x * v[..., 0:1] + y * v[..., 1:2] + n * v[..., 2:3]
+
+
+def reflect(dir_in, n):
+    """Mirror direction of `dir_in` (pointing away from the surface) about n."""
+    return -dir_in + 2.0 * dot_k(dir_in, n) * n
 
 
 def face_forward(n, ref):

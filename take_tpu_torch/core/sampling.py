@@ -3,6 +3,7 @@
 Each function maps uniforms u1, u2 in [0,1) to directions or points,
 mirroring the reference's samplers:
   * cosine hemisphere      — material.h:121-132
+  * Phong/Blinn cos^alpha  — materials/phong.inl:10-17, blinn_phong.inl:10-22
   * triangle sqrt warp     — shape.cpp:146-169
   * sphere visible cone    — shape.cpp:125-144
 """
@@ -18,6 +19,16 @@ def sample_hemisphere_cos(u1, u2):
     sqrt_u1 = torch.sqrt(torch.clamp(u1, 0.0, 1.0))
     z = torch.sqrt(torch.clamp(1.0 - u1, 0.0, 1.0))
     return torch.stack([torch.cos(phi) * sqrt_u1, torch.sin(phi) * sqrt_u1, z], dim=-1)
+
+
+def sample_cos_power(u1, u2, exponent):
+    """cos^alpha lobe around local z, pdf = (alpha + 1) / (2 pi) cos^alpha(theta)
+    (phong.inl:10-17, with its clamps). u1, u2 and exponent are [N]."""
+    recip_a1 = 1.0 / (exponent + 1.0)
+    phi = C_TWOPI * u2
+    cos_t = torch.clamp(u1 ** recip_a1, 0.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - u1 ** (2.0 * recip_a1), 0.0, 1.0))
+    return normalize(torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t], dim=-1))
 
 
 def sample_triangle(u1, u2):

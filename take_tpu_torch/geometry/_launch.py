@@ -1,4 +1,4 @@
-"""What the kernel wrappers (brute.py, packet.py, cluster.py) share at run time.
+"""What the kernel wrappers (brute.py, packet.py, cluster.py, sweep.py) share at run time.
 
 `LAUNCHES` counts what ran: each wrapper adds one to its kernel's key where
 it launches the kernel, and each plain twin to its `_plain` key where it
@@ -9,7 +9,7 @@ import torch
 
 LAUNCHES = {
     key: 0
-    for kernel in ("", "packet_", "cluster_")
+    for kernel in ("", "packet_", "cluster_", "sweep_")
     for key in (f"{kernel}closest", f"{kernel}anyhit", f"{kernel}closest_plain", f"{kernel}anyhit_plain")
 }
 

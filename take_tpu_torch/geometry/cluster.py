@@ -5,14 +5,17 @@ and their plain twin.
 kernels (take_tpu/geometry/pallas_cluster.py::_sweep_kernel,
 ::_occluded_kernel, entry `cluster_traverse`); the CUDA source and its
 design note are in csrc/cluster.cu. Both read `bvh.sup_aabb` (supercluster
-boxes, NaN-padded to a multiple of GROUP rows) and `geometry.tri_sweep`
-(each supercluster's 512 triangles as a transposed [24, 512] granule).
+boxes, NaN-padded to a multiple of GROUP rows) and `bvh.tris` (the packet
+kernel's row layout, geometry/packet.py::prep_tables): supercluster s is
+rows s * 512 .. s * 512 + 511. The TPU kernel reads the same operands as
+transposed [24, 512] granules (`geometry.tri_sweep`), which the port builds
+but keeps on the host.
 
 Dispatch is by the device of the rays: a CUDA tensor launches the kernel
 (and raises if it cannot), a CPU tensor runs the plain twin
 (`cluster_plain`): every supercluster box is slab-tested for every live ray,
 in ascending order, and each supercluster is swept densely over its 512
-columns for the rays that hit its box, merging with strict `<` (the lowest
+rows for the rays that hit its box, merging with strict `<` (the lowest
 triangle index wins a tie); the any-hit version ORs. `_launch.LAUNCHES`
 counts what ran.
 """
@@ -27,7 +30,6 @@ from take_tpu_torch.geometry.bvh import CLUSTER_K, GROUP, SUP
 from take_tpu_torch.geometry.packet import BIG, affine_test, inv_dir, slab
 
 SUPT = SUP * CLUSTER_K  # triangles per supercluster
-OPS = 24  # operand rows per granule
 CHUNK = 1 << 16  # rays per sweep of the plain twin (bounds its temporaries)
 
 # ---------------------------------------------------------------------------
@@ -35,7 +37,7 @@ CHUNK = 1 << 16  # rays per sweep of the plain twin (bounds its temporaries)
 # ---------------------------------------------------------------------------
 
 
-def cluster_plain(sup_aabb, tri_sweep, ro, rd, tmin, tmax, any_hit=False):
+def cluster_plain(sup_aabb, tris, ro, rd, tmin, tmax, any_hit=False):
     """Plain twin of K4/K5: (t, u, v, prim [int32]) of each ray, or with
     any_hit its occlusion [bool]."""
     _launch.LAUNCHES["cluster_anyhit_plain" if any_hit else "cluster_closest_plain"] += 1
@@ -47,15 +49,15 @@ def cluster_plain(sup_aabb, tri_sweep, ro, rd, tmin, tmax, any_hit=False):
     best_v = ro.new_zeros(n)
     best_p = torch.full((n,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
-    granules = tri_sweep.reshape(-1, OPS, SUPT)
-    cols = torch.arange(SUPT, device=dev)
     for sup in range(sup_aabb.shape[0]):
+        rows = tris[sup * SUPT:(sup + 1) * SUPT]  # [<= SUPT, 24]; rows past Tpad never hit
+        if rows.shape[0] == 0:
+            break
         tcap = tmax if any_hit else torch.minimum(best_t, tmax)
         box = sup_aabb[sup].expand(n, 8)
         hit, _ = slab(box[:, None, 0:3], box[:, None, 3:6], ro, inv, tmin, tcap)
         hit = hit[:, 0] & live & ~occ
         rays = hit.nonzero()[:, 0]
-        rows = granules[sup].T  # [SUPT, 24]
         for r in rays.split(CHUNK):
             t, u, v, inside = affine_test(rows, ro[r][:, None], rd[r][:, None])
             ok = inside & (t >= tmin[r, None]) & (t <= tcap[r, None])
@@ -67,7 +69,7 @@ def cluster_plain(sup_aabb, tri_sweep, ro, rd, tmin, tmax, any_hit=False):
             best_t[r] = torch.where(better, t_new, best_t[r])
             best_u[r] = torch.where(better, u.gather(1, j[:, None])[:, 0], best_u[r])
             best_v[r] = torch.where(better, v.gather(1, j[:, None])[:, 0], best_v[r])
-            best_p[r] = torch.where(better, sup * SUPT + cols[j], best_p[r])
+            best_p[r] = torch.where(better, sup * SUPT + j, best_p[r])
     if any_hit:
         return occ
     ok = best_t <= tmax
@@ -86,43 +88,41 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = _build.load("cluster")
-    lib.tt_cluster_closest.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
+    lib.tt_cluster_closest.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
     lib.tt_cluster_closest.restype = _I
-    lib.tt_cluster_occluded.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P]
+    lib.tt_cluster_occluded.argtypes = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P]
     lib.tt_cluster_occluded.restype = _I
     return lib
 
 
-def _check(sup_aabb, tri_sweep, ro, rd, tmin, tmax):
+def _check(sup_aabb, tris, ro, rd, tmin, tmax):
     n = _launch.check_rays(ro, rd, tmin, tmax)
-    n_sup = sup_aabb.shape[0]
+    n_sup, tpad = sup_aabb.shape[0], tris.shape[0]
     if n_sup % GROUP:
         raise ValueError(f"sup_aabb has {n_sup} rows, not a multiple of {GROUP}")
     _launch.check("sup_aabb", sup_aabb, torch.float32, (n_sup, 8), ro.device)
-    rows = tri_sweep.shape[0]
-    if rows < n_sup * OPS:
-        raise ValueError(f"tri_sweep covers {rows // OPS} superclusters < {n_sup}")
-    _launch.check("tri_sweep", tri_sweep, torch.float32, (rows, SUPT), ro.device)
-    return n, n_sup
+    _launch.check("bvh.tris", tris, torch.float32, (tpad, 24), ro.device)
+    return n, n_sup, tpad
 
 
-def closest(sup_aabb, tri_sweep, ro, rd, tmin, tmax):
+def closest(sup_aabb, tris, ro, rd, tmin, tmax):
     """K4: closest hit of each ray in [tmin, tmax] over the superclusters.
 
     Args:
         sup_aabb: [SupP, 8] supercluster boxes (BVHArrays.sup_aabb).
-        tri_sweep: [>= SupP * 24, 512] granules (GeometryArrays.tri_sweep).
+        tris: [Tpad, 24] triangle rows (BVHArrays.tris); rows at or past
+            Tpad of a supercluster are absent and never hit.
         ro, rd: [N, 3] rays; tmin, tmax: [N].
     Returns:
         (t, u, v [N] float32, prim [N] int32); t = 3.4e38, prim = -1 on a miss.
     """
     if not ro.is_cuda:
-        return cluster_plain(sup_aabb, tri_sweep, ro, rd, tmin, tmax)
-    n, n_sup = _check(sup_aabb, tri_sweep, ro, rd, tmin, tmax)
+        return cluster_plain(sup_aabb, tris, ro, rd, tmin, tmax)
+    n, n_sup, tpad = _check(sup_aabb, tris, ro, rd, tmin, tmax)
     t, u, v = (torch.empty(n, dtype=torch.float32, device=ro.device) for _ in range(3))
     prim = torch.empty(n, dtype=torch.int32, device=ro.device)
     code = _lib().tt_cluster_closest(
-        sup_aabb.data_ptr(), n_sup, tri_sweep.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+        sup_aabb.data_ptr(), n_sup, tris.data_ptr(), tpad, ro.data_ptr(), rd.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), n, t.data_ptr(), u.data_ptr(), v.data_ptr(),
         prim.data_ptr(), torch.cuda.current_stream(ro.device).cuda_stream,
     )
@@ -131,14 +131,14 @@ def closest(sup_aabb, tri_sweep, ro, rd, tmin, tmax):
     return t, u, v, prim
 
 
-def occluded(sup_aabb, tri_sweep, ro, rd, tmin, tmax):
+def occluded(sup_aabb, tris, ro, rd, tmin, tmax):
     """K5: whether any triangle lies in [tmin, tmax]. Returns [N] bool."""
     if not ro.is_cuda:
-        return cluster_plain(sup_aabb, tri_sweep, ro, rd, tmin, tmax, any_hit=True)
-    n, n_sup = _check(sup_aabb, tri_sweep, ro, rd, tmin, tmax)
+        return cluster_plain(sup_aabb, tris, ro, rd, tmin, tmax, any_hit=True)
+    n, n_sup, tpad = _check(sup_aabb, tris, ro, rd, tmin, tmax)
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     code = _lib().tt_cluster_occluded(
-        sup_aabb.data_ptr(), n_sup, tri_sweep.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+        sup_aabb.data_ptr(), n_sup, tris.data_ptr(), tpad, ro.data_ptr(), rd.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), n, occ.data_ptr(),
         torch.cuda.current_stream(ro.device).cuda_stream,
     )

@@ -1,11 +1,15 @@
 """Wide-BVH scene queries (port of take_tpu/geometry/traverse.py).
 
-Triangles go through one of two routes, each a CUDA kernel for rays on the
-card and the kernel's plain twin for rays on the CPU:
+Triangles go through one of three routes, each a CUDA kernel for rays on
+the card and the kernel's plain twin for rays on the CPU:
   * the packet route (default): K3, per-ray stack traversal of the wide BVH
     (geometry/packet.py);
   * the cluster route (FORCE_CLUSTER): K4/K5, the streaming supercluster
-    sweep (geometry/cluster.py).
+    sweep (geometry/cluster.py);
+  * the sweep route (FORCE_SWEEP, which wins over FORCE_CLUSTER): K6, the
+    tree-free cluster cull and sweep (geometry/sweep.py), for closest-hit
+    queries only; any-hit queries keep K3 (or K4/K5), as in the JAX
+    package, whose FORCE_SWEEP switch routes only closest hits.
 The JAX package picks the cluster route when the BVH tables outgrow the
 TPU's VMEM (`_packet_eligible`); K3 reads its tables from global memory at
 any size, so the port has no such gate. Spheres are tested densely and
@@ -19,19 +23,22 @@ and a room render is faster without it.
 
 import torch
 
-from take_tpu_torch.geometry import cluster, packet
+from take_tpu_torch.geometry import cluster, packet, sweep
 from take_tpu_torch.scene.types import Hit, Scene
 
 FORCE_CLUSTER = False  # route BVH queries to K4/K5 instead of K3
+FORCE_SWEEP = False  # route closest-hit BVH queries to K6 (wins over FORCE_CLUSTER)
 
 _BIG = packet.BIG
 
 
 def _traverse_backend(scene: Scene, ro, rd, tmin, tmax):
     """(t, u, v, prim, found) of the closest triangle hits."""
-    bvh, g = scene.bvh, scene.geometry
-    if FORCE_CLUSTER:
-        t, u, v, prim = cluster.closest(bvh.sup_aabb, g.tri_sweep, ro, rd, tmin, tmax)
+    bvh = scene.bvh
+    if FORCE_SWEEP:
+        t, u, v, prim = sweep.closest(bvh.cl_aabb, bvh.tris, scene.meta.n_tri, ro, rd, tmin, tmax)
+    elif FORCE_CLUSTER:
+        t, u, v, prim = cluster.closest(bvh.sup_aabb, bvh.tris, ro, rd, tmin, tmax)
     else:
         t, u, v, prim = packet.closest(bvh, ro, rd, tmin, tmax)
     return t, u, v, prim, prim >= 0
@@ -54,7 +61,7 @@ def bvh_occluded(scene: Scene, ro, rd, tmin, tmax):
 
     bvh, g = scene.bvh, scene.geometry
     if FORCE_CLUSTER:
-        found = cluster.occluded(bvh.sup_aabb, g.tri_sweep, ro, rd, tmin, tmax)
+        found = cluster.occluded(bvh.sup_aabb, bvh.tris, ro, rd, tmin, tmax)
     else:
         found = packet.occluded(bvh, ro, rd, tmin, tmax)
     if scene.meta.n_sph > 0:

@@ -14,6 +14,7 @@ import torch
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.camera import generate_rays
 from take_tpu_torch.integrator.path_tracer import trace_mis
+from take_tpu_torch.integrator.wavefront import trace_wavefront
 from take_tpu_torch.scene.types import RenderOptions, Scene
 
 
@@ -31,8 +32,10 @@ def use_wavefront_policy(scene: Scene, options: RenderOptions) -> bool:
 
 
 def _trace_fn(scene: Scene, options: RenderOptions):
+    """The bounce loop of a pass: trace_wavefront, which makes its own camera
+    rays, where the policy picks it; else trace_mis."""
     if use_wavefront_policy(scene, options):
-        raise NotImplementedError("wavefront-refill integrator: slice 4")
+        return trace_wavefront
     if options.integrator in ("mis", "mis_scan"):
         return trace_mis
     raise NotImplementedError(f"integrator {options.integrator!r}: later slices")
@@ -53,6 +56,8 @@ def render_pass(scene: Scene, options: RenderOptions, pixel_idx, sample0: int, w
     pix = pixel_idx[:, None].expand(P, n_samples).reshape(P * n_samples)
     samp = sample0 + torch.arange(n_samples, dtype=torch.int32, device=pix.device)
     samp = samp[None, :].expand(P, n_samples).reshape(P * n_samples)
+    if trace is trace_wavefront:  # the refill loop makes its own camera rays
+        return trace(scene, options, pix, samp, width).reshape(P, n_samples, 3).sum(dim=1)
     px = (pix % width).to(torch.float32)
     py = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
     streams = rng.make_stream(options.seed, pix, samp)

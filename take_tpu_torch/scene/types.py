@@ -64,9 +64,11 @@ class GeometryArrays:
 
     `tri_affine_o` / `tri_affine_d` hold each triangle's affine map into its
     (u, v, w) frame, axis-major: column k * Tpad + t is row k of triangle t.
-    `tri_sweep` holds the same operands as transposed supercluster granules
-    for the cluster sweep (geometry/cluster.py): rows sup * 24 + j hold
-    operand j of the supercluster's 512 triangles.
+    `tri_sweep` holds the same operands as the TPU cluster kernel's
+    transposed supercluster granules (rows sup * 24 + j hold operand j of
+    the supercluster's 512 triangles). No kernel of the port reads it, so it
+    stays on the host (HOST_TABLES), built only to be checked against the
+    JAX package's.
     """
 
     tri_v0: Any  # [T, 3]
@@ -118,6 +120,9 @@ class TextureAtlas:
     width: Any  # [n] int32
     height: Any  # [n] int32
 
+
+# Tables scene_from_numpy keeps on the host (CPU tensors) whatever the device.
+HOST_TABLES = ("geometry.tri_sweep",)
 
 # The BVH's scene tables, in the JAX package's BVHArrays order.
 BVH_TABLES = ("node_min", "node_max", "node_child", "node_count", "cl_aabb", "sup_aabb")
@@ -293,23 +298,24 @@ def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
     Keys are "geometry.tri_attr", "bvh.node_min", "lights.attr", ..., and
     "background", as the JAX package's Scene names its fields; the six
     "bvh." tables come all together or not at all. Floating tables become
-    float32 and integer tables int32 on `device`. Keys under "envmap."
-    raise NotImplementedError; unknown keys raise KeyError.
+    float32 and integer tables int32 on `device` (HOST_TABLES on the CPU).
+    Keys under "envmap." raise NotImplementedError; unknown keys raise
+    KeyError.
     """
     tables = dict(tables)
     for key in tables:
         if key.startswith("envmap."):
             raise NotImplementedError(f"scene table {key}: envmap slice")
 
-    def upload(a):
+    def upload(a, key=None):
         a = np.asarray(a)
         dtype = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+        return torch.from_numpy(np.array(a, dtype=dtype)).to("cpu" if key in HOST_TABLES else device)
 
     groups = {}
     for prefix, cls in _TABLE_GROUPS:
-        names = [f.name for f in dataclasses.fields(cls)]
-        groups[prefix] = cls(**{n: upload(tables.pop(f"{prefix}.{n}")) for n in names})
+        keys = [f"{prefix}.{f.name}" for f in dataclasses.fields(cls)]
+        groups[prefix] = cls(**{k.split(".")[1]: upload(tables.pop(k), k) for k in keys})
     bvh = None
     if any(key.startswith("bvh.") for key in tables):
         from take_tpu_torch.geometry.bvh import wide_depth

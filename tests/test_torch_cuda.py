@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from chip_smoke import fp32_bounds, near_boundary
-from take_tpu_torch.geometry import _launch, brute, cluster, packet
+from take_tpu_torch.geometry import _launch, brute, cluster, packet, sweep
 from take_tpu_torch.scene.parse_xml import parse_scene_file
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
@@ -141,13 +141,13 @@ def test_packet_kernels_match_twin(room, room_rays):
 
 @pytest.mark.cuda
 def test_cluster_kernels_match_twin(room, room_rays):
-    sup, sweep = room.bvh.sup_aabb, room.geometry.tri_sweep
-    k = cluster.closest(sup, sweep, *room_rays)
-    p = cluster.cluster_plain(sup, sweep, *room_rays)
+    sup, tris = room.bvh.sup_aabb, room.bvh.tris
+    k = cluster.closest(sup, tris, *room_rays)
+    p = cluster.cluster_plain(sup, tris, *room_rays)
     torch.cuda.synchronize()
     _closest_agree(room, k, p, room_rays)
-    o_k = cluster.occluded(sup, sweep, *room_rays)
-    o_p = cluster.cluster_plain(sup, sweep, *room_rays, any_hit=True)
+    o_k = cluster.occluded(sup, tris, *room_rays)
+    o_p = cluster.cluster_plain(sup, tris, *room_rays, any_hit=True)
     bad = (o_k != o_p).nonzero()[:, 0]
     assert bad.numel() <= N // 10000
     assert near_boundary(torch, room.geometry, room.meta.n_tri, *(r[bad] for r in room_rays), None).all()
@@ -161,12 +161,68 @@ def test_traversal_launches_are_counted_and_checked(room, room_rays):
     _launch.reset_launches()
     packet.closest(room.bvh, *room_rays)
     packet.occluded(room.bvh, *room_rays)
-    cluster.closest(room.bvh.sup_aabb, room.geometry.tri_sweep, *room_rays)
-    cluster.occluded(room.bvh.sup_aabb, room.geometry.tri_sweep, *room_rays)
+    cluster.closest(room.bvh.sup_aabb, room.bvh.tris, *room_rays)
+    cluster.occluded(room.bvh.sup_aabb, room.bvh.tris, *room_rays)
+    sweep.closest(room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri, *room_rays)
+    sweep.occluded(room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri, *room_rays)
     assert _launch.LAUNCHES == {**dict.fromkeys(_launch.LAUNCHES, 0), "packet_closest": 1,
-                               "packet_anyhit": 1, "cluster_closest": 1, "cluster_anyhit": 1}
+                               "packet_anyhit": 1, "cluster_closest": 1, "cluster_anyhit": 1,
+                               "sweep_closest": 1, "sweep_anyhit": 1}
     deep = dataclasses.replace(room.bvh, depth=100)  # needs a stack of 701 entries
     with pytest.raises(RuntimeError, match="stack"):
         packet.closest(deep, *room_rays)
-    with pytest.raises(ValueError, match="tri_sweep"):
-        cluster.closest(room.bvh.sup_aabb, room.geometry.tri_sweep[:24], *room_rays)
+    with pytest.raises(ValueError, match="bvh.tris"):
+        cluster.closest(room.bvh.sup_aabb, room.bvh.tris[:, :12], *room_rays)
+
+
+@pytest.mark.cuda
+def test_sweep_kernels_match_twin(room, room_rays):
+    """K6 closest and any hit against sweep_plain on room rays."""
+    args = (room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri)
+    k = sweep.closest(*args, *room_rays)
+    p = sweep.sweep_plain(*args, *room_rays)
+    torch.cuda.synchronize()
+    _closest_agree(room, k, p, room_rays)
+    o_k = sweep.occluded(*args, *room_rays)
+    o_p = sweep.sweep_plain(*args, *room_rays, any_hit=True)
+    bad = (o_k != o_p).nonzero()[:, 0]
+    assert bad.numel() <= N // 10000
+    assert near_boundary(torch, room.geometry, room.meta.n_tri, *(r[bad] for r in room_rays), None).all()
+    assert (o_k == (k[3] >= 0))[o_k == o_p].all()
+
+
+@pytest.mark.cuda
+def test_sweep_dead_padded_and_tail_lanes_miss(room, room_rays):
+    """A batch of 1000 rays (7 full blocks and a tail of 104) whose dead
+    lanes (tmax = -3.4e38) and padded lanes (ro = rd = 0, tmax = -1) miss,
+    while the live lanes' answers equal a run over the live lanes alone."""
+    ro, rd, tmin, tmax = (r[:1000].clone() for r in room_rays)
+    tmax[::3] = -3.4e38
+    ro[1::7], rd[1::7], tmax[1::7] = 0.0, 0.0, -1.0
+    args = (room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri)
+    t, u, v, prim = sweep.closest(*args, ro, rd, tmin, tmax)
+    occ = sweep.occluded(*args, ro, rd, tmin, tmax)
+    off = tmax < tmin
+    assert off.sum() > 300 and (prim[off] == -1).all() and (t[off] == brute.BIG).all()
+    assert not occ[off].any()
+    on = (~off).nonzero()[:, 0]
+    alone = sweep.closest(*args, *(x[on].contiguous() for x in (ro, rd, tmin, tmax)))
+    assert torch.equal(alone[3], prim[on]) and torch.equal(alone[0], t[on])
+    assert (prim[on] >= 0).any()
+
+
+@pytest.mark.cuda
+def test_sweep_refuses_what_it_cannot_take(room, room_rays):
+    """Bad inputs and an over-large cluster table raise; nothing falls back
+    to the twin, and nothing is counted as launched."""
+    args = (room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri)
+    _launch.reset_launches()
+    with pytest.raises(ValueError, match="ro"):
+        sweep.closest(*args, room_rays[0].double(), *room_rays[1:])
+    with pytest.raises(ValueError, match="cl_aabb"):
+        sweep.occluded(room.bvh.cl_aabb[:, :6], *args[1:], *room_rays)
+    most = sweep._lib().tt_sweep_max_clusters()
+    huge = torch.full((most + 8, 8), float("nan"), device="cuda")
+    with pytest.raises(RuntimeError, match="clusters"):
+        sweep.closest(huge, room.bvh.tris, room.meta.n_tri, *room_rays)
+    assert not any(_launch.LAUNCHES.values())

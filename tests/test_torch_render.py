@@ -93,9 +93,10 @@ def test_query_counts_match_jax():
 
 
 def test_refuses_what_later_slices_bring():
+    """The JAX package's other integrators are not ported: they raise."""
     ps = with_res(port_scene(jax_parse(CBOX)), 4, TCamera)
-    with pytest.raises(NotImplementedError, match="wavefront"):
-        t_render(ps, TOptions(spp=1, max_depth=2, integrator="mis_wavefront"))
+    with pytest.raises(NotImplementedError, match="one_sample_mis"):
+        t_render(ps, TOptions(spp=1, max_depth=2, integrator="one_sample_mis"))
     with pytest.raises(NotImplementedError, match="raw"):
         t_render(ps, TOptions(spp=1, max_depth=2, integrator="raw"))
 
@@ -108,6 +109,26 @@ def test_cli_renders_on_cpu(tmp_path):
     out = tmp_path / "out.exr"
     assert cli.main([str(scene_dir / "cbox.xml"), "-max_depth", "2", "-spp", "2",
                      "-o", str(out), "-device", "cpu"]) == 0
+    from take_tpu_torch.io.exr import read_exr
+
+    img = read_exr(str(out))
+    assert img.shape[:2] == (8, 8) and np.isfinite(img).all() and img.mean() > 0
+
+
+@pytest.mark.parametrize("name", ["mis", "textured"])
+def test_cli_renders_mis_and_textured_on_cpu(tmp_path, name):
+    """The CLI renders mis (blinn_microfacet plates, the scan loop) and
+    textured (an open BVH scene, the refill loop) at 8x8 and their
+    published max_depth 6."""
+    import os
+
+    src = os.path.join(os.path.dirname(CBOX), "..", name)
+    shutil.copytree(src, tmp_path / name)
+    xml = tmp_path / name / f"{name}.xml"
+    xml.write_text(xml.read_text().replace('name="width" value="512"', 'name="width" value="8"')
+                   .replace('name="height" value="512"', 'name="height" value="8"'))
+    out = tmp_path / "out.exr"
+    assert cli.main([str(xml), "-max_depth", "6", "-spp", "2", "-o", str(out), "-device", "cpu"]) == 0
     from take_tpu_torch.io.exr import read_exr
 
     img = read_exr(str(out))

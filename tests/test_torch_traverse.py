@@ -110,11 +110,11 @@ def test_cluster_plain_matches_jax_cluster(n_tri):
     (ro, rd, tmin, tmax), r = _padded(_rays(3 * 128 - 28, seed=n_tri), 128)
     args = (jax_scene.bvh.sup_aabb, jax_scene.geometry.tri_sweep, *(jnp.asarray(a) for a in (ro, rd, tmin, tmax)))
     want = cluster_traverse(*args, interpret=True)
-    got = cluster.cluster_plain(port.bvh.sup_aabb, port.geometry.tri_sweep, *r)
+    got = cluster.cluster_plain(port.bvh.sup_aabb, port.bvh.tris, *r)
     _assert_closest_agree(got, want, "cluster_plain vs cluster_traverse")
     _assert_closest_agree(got, _brute_closest(port, r), "cluster_plain vs closest_plain")
 
-    occ = cluster.cluster_plain(port.bvh.sup_aabb, port.geometry.tri_sweep, *r, any_hit=True).numpy()
+    occ = cluster.cluster_plain(port.bvh.sup_aabb, port.bvh.tris, *r, any_hit=True).numpy()
     np.testing.assert_array_equal(occ, np.asarray(cluster_traverse(*args, any_hit=True, interpret=True)))
     assert not occ[tmax <= 0].any()
 
@@ -129,26 +129,29 @@ def test_twins_do_not_depend_on_ray_order():
     ro[:1500] = ro[0]  # shared origins: many equal-t candidates across rays
     r = [torch.from_numpy(a) for a in (ro, rd, tmin, tmax)]
     perm = torch.from_numpy(np.random.default_rng(4).permutation(3000))
-    sup, sweep = port.bvh.sup_aabb, port.geometry.tri_sweep
+    sup, tris = port.bvh.sup_aabb, port.bvh.tris
     for fn in (lambda *a: packet.packet_plain(port.bvh, *a),
-               lambda *a: cluster.cluster_plain(sup, sweep, *a),
+               lambda *a: cluster.cluster_plain(sup, tris, *a),
                lambda *a: (packet.packet_plain(port.bvh, *a, any_hit=True),),
-               lambda *a: (cluster.cluster_plain(sup, sweep, *a, any_hit=True),)):
+               lambda *a: (cluster.cluster_plain(sup, tris, *a, any_hit=True),)):
         plain = fn(*r)
         permuted = fn(*(x[perm] for x in r))
         for a, b in zip(plain, permuted):
             assert torch.equal(a[perm], b)
 
 
-@pytest.mark.parametrize("force_cluster", [False, True])
-def test_bvh_queries_match_brute_scene(force_cluster):
-    """intersect_scene/occluded on a BVH scene (either route) against the
-    same soup built without a BVH: the same affine arithmetic on the same
+@pytest.mark.parametrize("force_cluster,force_sweep", [(False, False), (True, False), (False, True)],
+                         ids=["False", "True", "sweep"])
+def test_bvh_queries_match_brute_scene(force_cluster, force_sweep):
+    """intersect_scene/occluded on a BVH scene (each route: K3, K4/K5 under
+    FORCE_CLUSTER, K6 for closest hits under FORCE_SWEEP) against the same
+    soup built without a BVH: the same affine arithmetic on the same
     triangles, so every Hit field is equal."""
     port_bvh = port_soup(700, build_bvh=True)
     port_bf = port_soup(700, build_bvh=False)
     r = [torch.from_numpy(a) for a in _rays(2000, seed=9)]
-    with mock.patch.object(traverse, "FORCE_CLUSTER", force_cluster):
+    with mock.patch.object(traverse, "FORCE_CLUSTER", force_cluster), \
+            mock.patch.object(traverse, "FORCE_SWEEP", force_sweep):
         h_bvh = intersect.intersect_scene(port_bvh, *r)
         o_bvh = intersect.occluded(port_bvh, *r)
     h_bf = intersect.intersect_scene(port_bf, *r)
@@ -181,6 +184,22 @@ def test_textured_render_matches_jax():
     np.testing.assert_allclose(img_t.mean(axis=(0, 1)), img_j.mean(axis=(0, 1)), rtol=1e-3)
     err = (np.abs(img_t - img_j) / np.maximum(np.abs(img_j), 1e-4)).max(axis=-1)
     assert (err > 1e-3).sum() <= 2
+
+
+def test_textured_sweep_route_render_matches_packet_route():
+    """textured.xml at 16x16, 2 spp, max_depth 6 (the default policy: the
+    refill loop), closest hits through K6's twin (FORCE_SWEEP) against the
+    same render through K3's twin. The JAX package cannot be the reference
+    here: its FORCE_SWEEP needs the TPU. Both twins return the least
+    (t, prim) of the same affine tests, so every pixel agrees within 1e-6
+    relative."""
+    _, ps = _textured(16)
+    opts = TOptions(spp=2, max_depth=6, seed=0)
+    img_k3 = t_render(ps, opts)
+    with mock.patch.object(traverse, "FORCE_SWEEP", True):
+        img_k6 = t_render(ps, opts)
+    assert np.isfinite(img_k6).all() and img_k6.mean() > 0
+    np.testing.assert_allclose(img_k6, img_k3, rtol=1e-6, atol=0)
 
 
 def test_textured_query_counts_match_jax():

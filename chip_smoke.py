@@ -6,7 +6,9 @@ line and any failure raises, so the exit code is non-zero:
 
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
-     source, all started together;
+     source, all started together, and prints each kernel's registers,
+     shared memory, stack frame and spills (K3 must have no stack frame
+     and no spills);
   cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
   brute-force path, K1/K2):
   3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
@@ -14,11 +16,11 @@ line and any failure raises, so the exit code is non-zero:
   4. main: render_image through the kernels (launch counters must show
      kernels only), then at 256x256 through the plain twins;
   5. times: the render's Mrays/s (bench.py's metric), active_fraction, and
-     each kernel's per-call time beside its twin's;
+     each kernel's per-call time beside its twin's and its bound;
   room (scenes/room/room.xml, 1920x1080, 4 of the published 1024 spp,
   max_depth 6, seed 0; the wide-BVH path, K3 and, forced, K4/K5 and K6):
-  6. room build: parse, BVH build, nodes, wide depth, stack bound, table
-     bytes on the card;
+  6. room build: parse, BVH build, nodes (exact and quantised), wide depth,
+     stack entries, table bytes on the card;
   7. parity: K3 (closest and any hit), K4, K5 and K6 (closest and any hit)
      against their plain twins on 2^20 room rays (camera, incoherent from
      inside the room, shadow rays toward the light, dead lanes, a padded
@@ -27,7 +29,10 @@ line and any failure raises, so the exit code is non-zero:
      through K6 (closest hits) and K3 (any hits) alone (launch counters);
      at 192x108 through K3, K4/K5 (FORCE_CLUSTER), K6 and the plain twins,
      whose image means must agree;
-  9. times: as in 5, for both room renders and K3/K4/K5/K6;
+  9. times: as in 5, for both room renders and K3/K4/K5/K6 (one bound
+     for the closest-hit query and one for the any-hit query, whichever
+     kernel answers it), then K3 on the batches it gets in one pass of
+     the 1920x1080 render, captured, each beside its bound;
   mis (scenes/mis/mis.xml at its published 512x512, 128 spp, max_depth 6;
   blinn_microfacet plates and sphere lights on the brute path, K1/K2):
   10. main: render_image through K1/K2 alone, then at 128x128 against the
@@ -36,16 +41,20 @@ line and any failure raises, so the exit code is non-zero:
   max_depth 6; an open BVH scene, which the default policy sends through
   the wavefront-refill loop, on K3):
   11. main: render_image through the refill loop and K3 alone, then at
-      128x128 against the scan loop (integrator "mis_scan"); times, with
-      the refill loop's active_fraction.
+      128x128 against the scan loop (integrator "mis_scan"), and at 64x64
+      through K3 against the plain twins; times, with
+      the refill loop's active_fraction, and K3 on the captured batches of
+      one refill pass.
 
-It then prints the kernels' JSON line and, last, the device JSON line. It
-fails without a CUDA device, and when run outside a checkout of the repo.
+It then prints each cell's launches, the kernels' JSON line (with each
+kernel's bound_ms and bound_by) and, last, the device JSON line. It fails
+without a CUDA device, and when run outside a checkout of the repo.
 """
 
 import dataclasses
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +74,7 @@ ROOM_SPP, ROOM_DEPTH = 4, 6  # room at its published 1920x1080; spp cut from 102
 ROOM_SMALL = (192, 108)  # the four-way render's resolution
 MIS_SPP, MIS_DEPTH, MIS_SMALL = 128, 6, 128  # mis and textured at their published
 TEX_SPP, TEX_DEPTH, TEX_SMALL = 64, 6, 128  # 512x512, spp and depth
+TEX_TWIN = 64  # the resolution of textured's kernel-vs-twin render
 SOURCES = ("brute", "traverse", "cluster", "sweep")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
@@ -94,17 +104,129 @@ def device_phase(torch):
     return name, smi
 
 
+def ptxas_report(log):
+    """[(kernel, registers and shared memory, stack frame and spills)] from
+    nvcc's -Xptxas -v output, one entry per compiled kernel."""
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            mangled = line.split("Function properties for")[-1].strip()
+            name, pos = mangled, 3 if mangled.startswith("_ZN") else 2
+            while pos < len(mangled) and mangled[pos].isdigit():  # length-prefixed scopes, kernel last
+                m = re.match(r"\d+", mangled[pos:])
+                pos += m.end()
+                name, pos = mangled[pos:pos + int(m.group())], pos + int(m.group())
+            rest = mangled[pos:]
+            name += "<true>" if rest.startswith("ILb1E") else "<false>" if rest.startswith("ILb0E") else ""
+        elif "bytes stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and name is not None:
+            out.append((name, line.split("Used")[-1].strip(), frame))
+            name, frame = None, ""
+    return out
+
+
 def build_phase(_build, modules):
-    """nvcc for every source at once, then load each library."""
+    """nvcc for every source at once, then load each library. K3's kernels
+    must report 0 bytes of stack frame and no spills."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
     for module in modules:
         module._lib()
     for name, (lib, nvcc_s, log) in built.items():
-        ptxas = "; ".join(l.split("ptxas info    : ")[-1] for l in log.splitlines() if "Used" in l)
-        phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; {ptxas}")
+        report = ptxas_report(log)
+        phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; "
+              + "; ".join(f"{k}: {used}; {frame}" for k, used, frame in report))
+        if name == "traverse" and (not report or any(
+                frame != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for _, _, frame in report)):
+            raise RuntimeError(f"K3 uses local memory: {report}")
     phase("build", f"{len(SOURCES)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
+
+
+# The bound of a kernel call: the larger of its bytes over the memory rate
+# and its FLOPs over the float32 rate (H100 SXM published peaks, at a 700 W
+# power limit), with the FLOPs of the tests in csrc/geometry.cuh: slab_hit
+# 6 subtractions and 6 products; tri_test 18 for s_u, s_v, s_w, 15 for
+# d_u, d_v, d_w, the reciprocal, t, 2 each for u and v, and u + v.
+HBM_BYTES_S = 3.35e12
+FP32_FLOPS_S = 67e12
+SLAB_FLOPS, TRI_FLOPS = 12, 40
+RAY_BYTES = 32  # ro, rd, tmin, tmax
+HIT_BYTES, OCC_BYTES, ATTR_BYTES = 16, 1, 128  # t, u, v, prim; the occlusion byte; K1's attribute row
+WORK_SAMPLE = 1 << 16  # rays per batch whose traversal work the twin counts
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations")."""
+    b, f = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOPS_S * 1e3
+    return (b, "bytes") if b >= f else (f, "operations")
+
+
+def bvh_bound(torch, packet, bvh, rays, any_hit, seed=0):
+    """The bound of one BVH query (K3, K4 or K6 answer the same one): the
+    twin's slab and triangle tests, counted on WORK_SAMPLE random rays of
+    the batch and scaled to all of it; the rays read, the answers written
+    and the kernel's tables (qnodes, tris) read once. Returns (ms, by,
+    work per ray: node visits, slabs, triangles)."""
+    n = rays[0].shape[0]
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:WORK_SAMPLE].to(rays[0].device)
+    work = packet.packet_work(bvh, *(r[pick] for r in rays), any_hit=any_hit).sum(0).double()
+    work = work * n / pick.numel()
+    tables = bvh.qnodes.nbytes + bvh.tris.nbytes
+    ms, by = bound(n * (RAY_BYTES + (OCC_BYTES if any_hit else HIT_BYTES)) + tables,
+                   work[1].item() * SLAB_FLOPS + work[2].item() * TRI_FLOPS)
+    return ms, by, (work / n).tolist()
+
+
+def capture_queries(torch, scene, options):
+    """K3's inputs, copied, from the first pass of a render of `scene`:
+    [("closest" or "anyhit", [ro, rd, tmin, tmax])] in launch order."""
+    from take_tpu_torch.geometry import packet
+
+    render = importlib.import_module("take_tpu_torch.render")  # the package's `render` is a function
+    calls, one_pass = [], render.render_pass
+
+    class FirstPass(Exception):
+        pass
+
+    def recording(kind, fn):
+        def wrapped(bvh, *rays):
+            calls.append((kind, [r.clone() for r in rays]))
+            return fn(bvh, *rays)
+        return wrapped
+
+    def first_pass(*a, **k):
+        one_pass(*a, **k)
+        raise FirstPass
+
+    with mock.patch.object(packet, "closest", recording("closest", packet.closest)), \
+            mock.patch.object(packet, "occluded", recording("anyhit", packet.occluded)), \
+            mock.patch.object(render, "render_pass", first_pass):
+        try:
+            render.render_image(scene, options)
+        except FirstPass:
+            pass
+    return calls
+
+
+def captured_times(torch, packet, bvh, calls, label):
+    """K3 per captured batch (CUDA events, 10 calls after 3 warm-ups) beside
+    the batch's bound. Returns (kernel ms, bound ms) summed per kind."""
+    sums = {"closest": [0.0, 0.0], "anyhit": [0.0, 0.0]}
+    rows = []
+    for j, (kind, rays) in enumerate(calls):
+        fn = packet.closest if kind == "closest" else packet.occluded
+        ms = time_call(torch, lambda: fn(bvh, *rays), iters=10)
+        b_ms, by, work = bvh_bound(torch, packet, bvh, rays, kind == "anyhit", seed=j)
+        live = (rays[3] >= rays[2]).float().mean().item()
+        sums[kind][0] += ms
+        sums[kind][1] += b_ms
+        rows.append(f"{j}:{kind} n={rays[0].shape[0]} live {live:.3f} {ms:.4f} ms (bound {b_ms:.4f} ms, {by}; "
+                    f"per ray {work[0]:.2f} nodes {work[1]:.2f} slabs {work[2]:.2f} tris)")
+    phase("times", f"{label} K3 on the captured batches of one pass: " + "; ".join(rows)
+          + "; per pass " + ", ".join(f"{k} {v[0]:.4f} ms (bound {v[1]:.4f} ms)" for k, v in sums.items()))
+    return sums
 
 
 def make_rays(torch, scene, rng, n, lo, hi):
@@ -478,16 +600,46 @@ def cbox_cell(torch, dev, out_dir):
         "anyhit": time_call(torch, lambda: brute.occluded(*args_o)),
         "anyhit_plain": time_call(torch, lambda: brute.occluded_plain(*args_o)),
     }
+    bounds = brute_bounds(torch, scene, rays)
     phase("times", f"cbox render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f}; "
-          f"per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+          f"per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]}, {v[2]})" for k, v in bounds.items()))
     return [
         dict(name="closest", route="cuda", source="take_tpu_torch/csrc/brute.cu",
              replaces="take_tpu/geometry/pallas_brute.py:77", launches=launches["closest"],
-             max_abs_err=err_closest, ms=ms["closest"], plain_ms=ms["closest_plain"]),
+             max_abs_err=err_closest, ms=ms["closest"], plain_ms=ms["closest_plain"],
+             bound_ms=bounds["closest"][0], bound_by=bounds["closest"][1], library_ms=None),
         dict(name="anyhit", route="cuda", source="take_tpu_torch/csrc/brute.cu",
              replaces="take_tpu/geometry/pallas_brute.py:129", launches=launches["anyhit"],
-             max_abs_err=err_anyhit, ms=ms["anyhit"], plain_ms=ms["anyhit_plain"]),
-    ]
+             max_abs_err=err_anyhit, ms=ms["anyhit"], plain_ms=ms["anyhit_plain"],
+             bound_ms=bounds["anyhit"][0], bound_by=bounds["anyhit"][1], library_ms=None),
+    ], launches
+
+
+def brute_bounds(torch, scene, rays):
+    """K1 and K2's bounds on these rays: K1 tests every triangle for each
+    live ray and writes (t, u, v, prim) and the winner's attribute row; K2
+    tests, for each live ray, the triangles up to its first hit in index
+    order (all of them when none hits) and writes one byte. Both read the
+    rays and their triangle tables once. Returns {kernel: (ms, by, what)}."""
+    from take_tpu_torch.geometry.brute import tri_uvt
+
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    ro, rd, tmin, tmax = rays
+    n, live = ro.shape[0], int((tmax >= tmin).sum())
+    tests = 0
+    for s in range(0, n, 1 << 16):
+        sl = slice(s, s + (1 << 16))
+        ok = tri_uvt(g.tri_affine_o, g.tri_affine_d, n_tri, ro[sl], rd[sl], tmin[sl], tmax[sl])[3]
+        first = torch.where(ok.any(1), ok.to(torch.int8).argmax(1) + 1, n_tri)
+        tests += int(torch.where(tmax[sl] >= tmin[sl], first, 0).sum())
+    tables = g.tri_affine_o.nbytes + g.tri_affine_d.nbytes
+    return {
+        "closest": (*bound(n * (RAY_BYTES + HIT_BYTES + ATTR_BYTES) + tables + g.tri_attr.nbytes,
+                           live * n_tri * TRI_FLOPS), f"{live} live rays x {n_tri} triangles"),
+        "anyhit": (*bound(n * (RAY_BYTES + OCC_BYTES) + tables, tests * TRI_FLOPS),
+                   f"{tests / max(live, 1):.2f} triangles per live ray"),
+    }
 
 
 def room_cell(torch, dev, out_dir):
@@ -528,12 +680,14 @@ def room_cell(torch, dev, out_dir):
     table_bytes = sum(x.nbytes for x in tensors if x.is_cuda)
     host_bytes = sum(x.nbytes for x in tensors if not x.is_cuda)
     bvh_bytes = sum(getattr(bvh, n).nbytes for n in ("node_min", "node_max", "node_child", "node_count",
-                                                       "cl_aabb", "sup_aabb", "nodes", "tris"))
-    need, have = packet.stack_bound(bvh.depth), packet._lib().tt_packet_stack_size()
+                                                       "cl_aabb", "sup_aabb", "nodes", "tris", "qnodes"))
+    need, have = packet.entry_bound(bvh.depth), packet._lib().tt_packet_stack_size()
     phase("room build", f"{meta.n_tri} triangles, {meta.n_lights} lights: parse {t_parse:.2f} s, "
           f"BVH build {bvh_s[0]:.2f} s (tables {t_tables:.2f} s in all), upload + kernel layout "
-          f"{t_upload:.2f} s; {bvh.node_child.shape[0]} nodes, wide depth {bvh.depth}, stack bound "
-          f"{need} of the kernel's {have}; {bvh.cl_aabb.shape[0]} clusters (the sweep kernel holds "
+          f"{t_upload:.2f} s; {bvh.node_child.shape[0]} nodes ({bvh.qnodes.nbytes / 2**20:.3f} MiB quantised, "
+          f"{bvh.nodes.nbytes / 2**20:.3f} MiB exact), wide depth {bvh.depth}, stack of {need} (base, mask) "
+          f"entries of the kernel's {have} (the twin's per-node stack: {packet.stack_bound(bvh.depth)}); "
+          f"{bvh.cl_aabb.shape[0]} clusters (the sweep kernel holds "
           f"{sweep._lib().tt_sweep_max_clusters()}), {bvh.sup_aabb.shape[0]} superclusters; on the card "
           f"{table_bytes / 2**20:.2f} MiB of scene tables + {bvh_bytes / 2**20:.2f} MiB of BVH tables; "
           f"kept on the host {host_bytes / 2**20:.2f} MiB (geometry.tri_sweep, which K4/K5 no longer read: "
@@ -610,9 +764,15 @@ def room_cell(torch, dev, out_dir):
         "sweep_anyhit_plain": time_call(torch, lambda: sweep.sweep_plain(cl, tris, n_tri, *rays, any_hit=True),
                                         1, 2),
     }
+    bounds = {kind: bvh_bound(torch, packet, bvh, rays, kind == "anyhit") for kind in ("closest", "anyhit")}
     phase("times", f"room render {dt_room:.4f} s = {mrays_room:.3f} Mrays/s, under FORCE_SWEEP "
           f"{dt_sweep:.4f} s = {mrays_sweep:.3f} Mrays/s; active_fraction {af_room:.6f} (1 spp); parity "
-          f"{t_parity:.1f} s; per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+          f"{t_parity:.1f} s; per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + "; bound of the query (K3, K4/K5 and K6 alike) " + ", ".join(
+              f"{k} {v[0]:.4f} ms ({v[1]}; per ray {v[2][0]:.2f} nodes {v[2][1]:.2f} slabs {v[2][2]:.2f} tris)"
+              for k, v in bounds.items()))
+    calls = capture_queries(torch, room, dataclasses.replace(room_opts, spp=1))
+    captured_times(torch, packet, bvh, calls, f"room {cam.width}x{cam.height} d{ROOM_DEPTH}")
     launches = {**launches_room, **launches_cluster, **launches_sweep, "sweep_anyhit": 0}
     entries = []
     for key, src, line in (
@@ -623,10 +783,12 @@ def room_cell(torch, dev, out_dir):
         ("sweep_closest", "sweep.cu", "pallas_sweep.py:69"),
         ("sweep_anyhit", "sweep.cu", "pallas_sweep.py:69"),
     ):
+        b_ms, by, _ = bounds["anyhit" if key.endswith("anyhit") else "closest"]
         entries.append(dict(name=key, route="cuda", source=f"take_tpu_torch/csrc/{src}",
                             replaces=f"take_tpu/geometry/{line}", launches=launches[key],
-                            max_abs_err=errs[key], ms=ms[key], plain_ms=ms[f"{key}_plain"]))
-    return entries
+                            max_abs_err=errs[key], ms=ms[key], plain_ms=ms[f"{key}_plain"],
+                            bound_ms=b_ms, bound_by=by, library_ms=None))
+    return entries, launches_room
 
 
 def mis_cell(torch, dev, out_dir):
@@ -666,6 +828,7 @@ def mis_cell(torch, dev, out_dir):
     dt, mrays = timed_render(torch, render_image, scene, options)
     af = active_fraction(torch, scene, options, 1)
     phase("times", f"mis render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} (1 spp)")
+    return launches
 
 
 def textured_cell(torch, dev, out_dir):
@@ -673,7 +836,7 @@ def textured_cell(torch, dev, out_dir):
     64 spp, d6 render with the default policy, so through the refill loop
     and K3 alone; a reduced-resolution check of the refill loop against
     the scan loop; times."""
-    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.geometry import _launch, packet
     from take_tpu_torch.integrator import wavefront
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image
@@ -710,10 +873,25 @@ def textured_cell(torch, dev, out_dir):
           f"{img_s.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL})")
     if not np.isfinite(img_s).all() or rel > MEAN_REL:
         raise RuntimeError("the refill loop disagrees with the scan loop")
+    tiny = with_res(scene, TEX_TWIN)
+    img_k, _ = render_counted(torch, _launch, render_image, tiny, options,
+                              ("packet_closest", "packet_anyhit"), "textured K3 render")
+    with mock.patch.object(packet, "closest", lambda b, *r: packet.packet_plain(b, *r)), \
+            mock.patch.object(packet, "occluded", lambda b, *r: packet.packet_plain(b, *r, any_hit=True)):
+        img_p, _ = render_counted(torch, _launch, render_image, tiny, options,
+                                  ("packet_closest_plain", "packet_anyhit_plain"), "textured twin render")
+    rel, mk = mean_rel(img_k, img_p)
+    phase("main", f"textured {TEX_TWIN}x{TEX_TWIN} K3 vs plain twins (refill loop): means {mk.tolist()} vs "
+          f"{img_p.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL})")
+    if rel > MEAN_REL:
+        raise RuntimeError("textured kernel render disagrees with the plain-twin render")
     dt, mrays = timed_render(torch, render_image, scene, options)
     af = wavefront_active_fraction(torch, scene, options)
     phase("times", f"textured render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} "
           f"(refill loop, one pass)")
+    calls = capture_queries(torch, scene, options)
+    captured_times(torch, packet, scene.bvh, calls, f"textured {cam.width}x{cam.height} d{TEX_DEPTH} (refill loop)")
+    return launches
 
 
 def main():
@@ -732,10 +910,13 @@ def main():
     out_dir = ROOT / "build" / "take_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    kernels = cbox_cell(torch, dev, out_dir)
-    kernels += room_cell(torch, dev, out_dir)
-    mis_cell(torch, dev, out_dir)
-    textured_cell(torch, dev, out_dir)
+    kernels, launches = cbox_cell(torch, dev, out_dir)
+    room_kernels, launches_room = room_cell(torch, dev, out_dir)
+    kernels += room_kernels
+    launches_mis = mis_cell(torch, dev, out_dir)
+    launches_tex = textured_cell(torch, dev, out_dir)
+    phase("times", f"launches per default render: cbox {launches}, room {launches_room}, mis {launches_mis}, "
+          f"textured {launches_tex}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,6 +28,31 @@ loop) and prints:
      torch.profiler at each wave size: busy share, kernel time by kind,
      launches, and the loop's iterations and launches per iteration.
 
+`python3 prof_room.py --k3 [--check]` holds K3 (csrc/traverse.cu) against
+the kernel it replaced and against staged variants, in one call, on the
+card. Stage them first, under the ignored build/ directory:
+
+    mkdir -p build/k3_ab/parent
+    git show <parent>:take_tpu_torch/csrc/traverse.cu > build/k3_ab/parent/traverse.cu
+
+(with the parent's csrc/geometry.cuh beside it where this tree's differs),
+or put a variant of the current source at build/k3_ab/<name>.cu. Each is
+built with nvcc beside the package's own; a source that names `qnodes`
+reads the quantised nodes, any other (the parent) the exact node rows
+(bvh.nodes). It prints:
+
+  1. the card, and ptxas's report of every variant;
+  2. check: each variant once on 2^20 room rays of chip_smoke's mix, both
+     modes, held against packet_plain by chip_smoke's gates (--check stops
+     here);
+  3. batches: per-pass sums of each variant's time (CUDA events, 10 calls
+     after 3 warm-ups per batch) on chip_smoke's mix and on the captured
+     batches of one pass of room (1920x1080, d6) and of textured (512x512,
+     64 spp, d6, refill loop), the variants in turn and back (old, new,
+     new, old), and each batch's time for the parent and the package's
+     kernel;
+  4. renders: room and textured through each variant, in the same order.
+
 Times are Mrays/s by bench.py's metric, rays = W * H * spp * (1 + 2 (d + 1)).
 """
 
@@ -40,6 +65,8 @@ import time
 from collections import defaultdict
 from pathlib import Path
 from unittest import mock
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 ROOM = ROOT / "scenes" / "room" / "room.xml"
@@ -192,6 +219,120 @@ def textured(torch, render_image, parse_scene_file, RenderOptions):
               f"{launches / iterations:.1f} per iteration; active_fraction {active / nominal:.6f}", flush=True)
 
 
+def variants(torch, packet, _build):
+    """{name: (closest(bvh, *rays), occluded(bvh, *rays))}: the staged
+    sources under build/k3_ab, then the package's kernel ("package")."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    staged = ROOT / "build" / "k3_ab"
+    for src in sorted([*staged.glob("*.cu"), *staged.glob("*/traverse.cu")]):
+        name = src.stem if src.parent == staged else src.parent.name
+        lib_path = staged / f"{name}.so"
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib_path),
+                               str(src)], capture_output=True, text=True)
+        print(f"[ptxas {name}] exit {proc.returncode}\n{proc.stderr}{proc.stdout}", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}")
+        lib = ctypes.CDLL(str(lib_path))
+        table = "qnodes" if "qnodes" in src.read_text() else "nodes"
+        lib.tt_packet_closest.argtypes = [P] * 6 + [I] + [P] * 5
+        lib.tt_packet_occluded.argtypes = [P] * 6 + [I] + [P] * 2
+
+        def make(lib, table):
+            def args(bvh, ro, rd, tmin, tmax):
+                return [getattr(bvh, table).data_ptr(), bvh.tris.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+                        tmin.data_ptr(), tmax.data_ptr(), ro.shape[0]]
+
+            def closest(bvh, *rays):
+                n = rays[0].shape[0]
+                t, u, v = (torch.empty(n, device="cuda") for _ in range(3))
+                prim = torch.empty(n, dtype=torch.int32, device="cuda")
+                code = lib.tt_packet_closest(*args(bvh, *rays), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+                                             prim.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return t, u, v, prim
+
+            def occluded(bvh, *rays):
+                occ = torch.empty(rays[0].shape[0], dtype=torch.bool, device="cuda")
+                code = lib.tt_packet_occluded(*args(bvh, *rays), occ.data_ptr(),
+                                              torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return occ
+            return closest, occluded
+
+        out[name] = make(lib, table)
+    out["package"] = (packet.closest, packet.occluded)
+    print(f"[ptxas package]\n{_build.build('traverse')[2]}", flush=True)
+    return out
+
+
+def k3(torch, render_image, parse_scene_file, RenderOptions):
+    import chip_smoke as cs
+    from take_tpu_torch.geometry import _build, packet
+
+    room = parse_scene_file(str(ROOM), device="cuda")
+    tex = parse_scene_file(str(TEXTURED), device="cuda")
+    ks = variants(torch, packet, _build)
+    names = list(ks)
+    bvh = room.bvh
+    lo = bvh.node_min[0].amin(dim=0).cpu().numpy().astype(np.float64)
+    hi = bvh.node_max[0].amax(dim=0).cpu().numpy().astype(np.float64)
+    pad = 0.02 * (hi - lo)
+    mix, dead = cs.make_rays(torch, room, np.random.default_rng(SEED), 1 << 20, lo + pad, hi - pad)
+    want_c = packet.packet_plain(bvh, *mix)
+    want_o = packet.packet_plain(bvh, *mix, any_hit=True)
+    for name, (closest, occluded) in ks.items():
+        got_c, got_o = closest(bvh, *mix), occluded(bvh, *mix)
+        torch.cuda.synchronize()
+        _, _, line = cs.closest_gate(torch, f"{name} closest", room, got_c, want_c, mix, dead)
+        print(f"[check] {line}", flush=True)
+        cs.anyhit_gate(torch, f"{name} any-hit", room, got_o, want_o, mix, dead)
+    if "--check" in sys.argv[1:]:
+        return
+    room_opts = RenderOptions(spp=SPP, max_depth=DEPTH, seed=SEED)
+    tex_opts = RenderOptions(spp=TEX_SPP, max_depth=DEPTH, seed=SEED)
+    sets = {
+        "mix": (bvh, [("closest", mix), ("anyhit", mix)]),
+        "room": (bvh, cs.capture_queries(torch, room, dataclasses.replace(room_opts, spp=1))),
+        "textured": (tex.bvh, cs.capture_queries(torch, tex, tex_opts)),
+    }
+    order = names + names[::-1]
+    per_batch = defaultdict(lambda: defaultdict(list))
+    for label, (b, calls) in sets.items():
+        sums = defaultdict(lambda: defaultdict(list))
+        for name in order:
+            closest, occluded = ks[name]
+            tot = defaultdict(float)
+            for j, (kind, rays) in enumerate(calls):
+                fn = closest if kind == "closest" else occluded
+                ms = cs.time_call(torch, lambda: fn(b, *rays), iters=10)
+                tot[kind] += ms
+                per_batch[(label, name)][j].append(ms)
+            for kind, v in tot.items():
+                sums[kind][name].append(v)
+        for kind, by in sums.items():
+            print(f"[batches {label}] {kind} per pass, ms (in order {order}): " + "; ".join(
+                f"{n} {', '.join(f'{x:.4f}' for x in v)} (mean {statistics.mean(v):.4f})" for n, v in by.items()),
+                flush=True)
+        for name in ("parent", "package"):
+            if (label, name) in per_batch:
+                rows = per_batch[(label, name)]
+                print(f"[per batch {label} {name}] " + "; ".join(
+                    f"{j}:{calls[j][0]} {statistics.mean(v):.4f}" for j, v in sorted(rows.items())), flush=True)
+    for label, scene, opts in (("room", room, room_opts), ("textured", tex, tex_opts)):
+        render_image(scene, dataclasses.replace(opts, spp=1))  # warm-up
+        times = defaultdict(list)
+        for name in order:
+            closest, occluded = ks[name]
+            with mock.patch.object(packet, "closest", closest), mock.patch.object(packet, "occluded", occluded):
+                dt, _ = timed(torch, render_image, scene, opts, f"{label} through {name}")
+            times[name].append(dt)
+        print(f"[renders {label}] " + "; ".join(f"{n} {', '.join(f'{x:.4f}' for x in v)} s" for n, v in times.items()),
+              flush=True)
+
+
 def main():
     import torch
 
@@ -203,7 +344,7 @@ def main():
     from take_tpu_torch.scene.types import RenderOptions
 
     print(f"[card] {smi('name,power.limit')}", flush=True)
-    run = textured if "--textured" in sys.argv[1:] else room
+    run = textured if "--textured" in sys.argv[1:] else k3 if "--k3" in sys.argv[1:] else room
     run(torch, render_image, parse_scene_file, RenderOptions)
 
 

@@ -33,8 +33,9 @@ __all__ = [
 ]
 
 
-def load_scene(path, device="cpu", **kwargs):
-    """Parse a Mitsuba-XML scene file into a Scene on `device`."""
+def load_scene(path, device="cuda", **kwargs):
+    """Parse a Mitsuba-XML scene file into a Scene on `device` (the card unless
+    the caller asks for "cpu"; without a card the default raises torch's error)."""
     from take_tpu_torch.scene.parse_xml import parse_scene_file
 
     return parse_scene_file(path, device=device, **kwargs)

@@ -438,7 +438,8 @@ class SceneBuilder:
         )
         return tables, meta
 
-    def build(self, device="cpu", build_bvh="auto") -> T.Scene:
-        """Pack the tables (`build_tables`) and upload them once to `device`."""
+    def build(self, device="cuda", build_bvh="auto") -> T.Scene:
+        """Pack the tables (`build_tables`) and upload them once to `device`:
+        the card unless the caller asks for "cpu" (no fallback without one)."""
         tables, meta = self.build_tables(build_bvh)
         return T.scene_from_numpy(tables, meta, device)

@@ -133,10 +133,11 @@ class BVHArrays:
     """Flattened wide BVH (geometry/bvh.py), built on the host.
 
     The first six fields are scene tables, as in take_tpu's BVHArrays. The
-    other three are derived from them once, when the scene is uploaded
+    others are derived from them once, when the scene is uploaded
     (`scene_from_numpy`), and kept with the scene so that no query rebuilds
     them: the tree's wide depth, which sizes the traversal stacks, and the
-    packet kernel's layout of the node and triangle tables
+    packet layouts of the node and triangle tables: the exact node rows,
+    the triangle rows and the kernel's quantised nodes
     (geometry/packet.py::prep_tables).
     """
 
@@ -149,6 +150,7 @@ class BVHArrays:
     depth: int = dataclasses.field(default=0, compare=False)
     nodes: Any = dataclasses.field(default=None, compare=False, repr=False)  # [M * W, 8]
     tris: Any = dataclasses.field(default=None, compare=False, repr=False)  # [Tpad, 24]
+    qnodes: Any = dataclasses.field(default=None, compare=False, repr=False)  # [M', 24] int32
 
 
 @dataclass(frozen=True)
@@ -324,7 +326,7 @@ def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
         host = {n: tables.pop(f"bvh.{n}") for n in BVH_TABLES}
         bvh = BVHArrays(**{n: upload(a) for n, a in host.items()})
         bvh.depth = wide_depth(np.asarray(host["node_child"]))
-        bvh.nodes, bvh.tris = prep_tables(bvh, groups["geometry"])
+        bvh.nodes, bvh.tris, bvh.qnodes = prep_tables(bvh, groups["geometry"])
     background = upload(tables.pop("background"))
     if tables:
         raise KeyError(f"unknown scene tables: {sorted(tables)}")

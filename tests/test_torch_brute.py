@@ -120,7 +120,7 @@ def test_spheres_and_triangles_match_jax(rng_np):
         m = b.add_material(0, tex_value=(0.3, 0.6, 0.9))
         b.add_sphere((0.3, 0.25, -0.3), 0.2, m)
         b.add_sphere((0.7, 0.6, -0.6), 0.15, m, emission=(2.0, 2.0, 2.0))
-    js, ps = jb.build(), tb.build()
+    js, ps = jb.build(), tb.build(device="cpu")
     n = 2048
     ro, rd = _rays(rng_np, n, lo=(0.05, 0.05, -0.95), hi=(0.95, 0.95, -0.05))
     tmin = np.full(n, 1e-4, np.float32)

@@ -5,20 +5,58 @@ JAX nor take_tpu, so they run where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fp32_bounds, near_boundary
+from chip_smoke import capture_queries, fp32_bounds, near_boundary, with_res
 from take_tpu_torch.geometry import _launch, brute, cluster, packet, sweep
+from take_tpu_torch.geometry.packet import prep_tables
+from take_tpu_torch.scene.build import SceneBuilder
 from take_tpu_torch.scene.parse_xml import parse_scene_file
+from take_tpu_torch.scene.types import BVHArrays
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 CBOX = os.path.join(SCENES, "cbox", "cbox.xml")
 ROOM = os.path.join(SCENES, "room", "room.xml")
 N = 1 << 16
+
+
+def chain_scene(depth, device):
+    """A degenerate deep tree: `depth` triangles at z = k + 0.5 (k < depth),
+    and a chain of nested boxes C_0 ... C_{depth-1}, where C_k holds the
+    triangles k ... depth-1 and has two inner children, C_{k+1} and a side
+    node S_k over triangle k (the last chain node holds its triangle as a
+    leaf). Wide depth `depth`; a ray down the chain keeps one stack entry
+    per level."""
+    b = SceneBuilder()
+    m = b.add_material(0)
+    for k in range(depth):
+        b.add_mesh(np.array([[-1.0, -1.0, k + 0.5], [3.0, -1.0, k + 0.5], [-1.0, 3.0, k + 0.5]]),
+                   np.array([[0, 1, 2]]), m)
+    scene = b.build(device=device, build_bvh=False)
+    n = 2 * depth - 1  # C_0 = 0, C_k = 2k - 1, S_k = 2k + 2 (breadth first)
+    lo = np.full((n, 8, 3), 3e38, np.float32)
+    hi = np.full((n, 8, 3), -3e38, np.float32)
+    child = np.full((n, 8), -1, np.int32)
+    count = np.zeros((n, 8), np.int32)
+    c_of = lambda k: 0 if k == 0 else 2 * k - 1
+    for k in range(depth):
+        c = c_of(k)
+        if k == depth - 1:
+            lo[c, 0], hi[c, 0], child[c, 0], count[c, 0] = (-1, -1, k + 0.5), (3, 3, k + 0.5), -(k + 1), 1
+            continue
+        s = 2 * k + 2
+        lo[c, 0], hi[c, 0], child[c, 0] = (-1, -1, k + 1.5), (3, 3, depth - 0.5), c_of(k + 1)
+        lo[c, 1], hi[c, 1], child[c, 1] = (-1, -1, k + 0.5), (3, 3, k + 0.5), s
+        lo[s, 0], hi[s, 0], child[s, 0], count[s, 0] = (-1, -1, k + 0.5), (3, 3, k + 0.5), -(k + 1), 1
+    bvh = BVHArrays(*(torch.from_numpy(a).to(device) for a in (lo, hi, child, count)),
+                    cl_aabb=None, sup_aabb=None, depth=depth)
+    bvh.nodes, bvh.tris, bvh.qnodes = prep_tables(bvh, scene.geometry)
+    return dataclasses.replace(scene, bvh=bvh)
 
 
 @pytest.fixture
@@ -168,7 +206,7 @@ def test_traversal_launches_are_counted_and_checked(room, room_rays):
     assert _launch.LAUNCHES == {**dict.fromkeys(_launch.LAUNCHES, 0), "packet_closest": 1,
                                "packet_anyhit": 1, "cluster_closest": 1, "cluster_anyhit": 1,
                                "sweep_closest": 1, "sweep_anyhit": 1}
-    deep = dataclasses.replace(room.bvh, depth=100)  # needs a stack of 701 entries
+    deep = dataclasses.replace(room.bvh, depth=100)  # needs a stack of 100 entries
     with pytest.raises(RuntimeError, match="stack"):
         packet.closest(deep, *room_rays)
     with pytest.raises(ValueError, match="bvh.tris"):
@@ -226,3 +264,78 @@ def test_sweep_refuses_what_it_cannot_take(room, room_rays):
     with pytest.raises(RuntimeError, match="clusters"):
         sweep.closest(huge, room.bvh.tris, room.meta.n_tri, *room_rays)
     assert not any(_launch.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_packet_kernels_match_twin_on_captured_batches(room):
+    """K3 against packet_plain on the queries a room render launches (one
+    pass of a 192x108, 1 spp, d6 render: camera, bounce and shadow rays),
+    with the closest-hit gate and occlusion equal except near a boundary."""
+    from take_tpu_torch.scene.types import RenderOptions
+
+    calls = capture_queries(torch, with_res(room, 192, 108), RenderOptions(spp=1, max_depth=6, seed=0))
+    assert [k for k, _ in calls].count("closest") == 8 and [k for k, _ in calls].count("anyhit") == 7
+    for kind, rays in calls:
+        if kind == "closest":
+            _closest_agree(room, packet.closest(room.bvh, *rays), packet.packet_plain(room.bvh, *rays), rays)
+        else:
+            o_k = packet.occluded(room.bvh, *rays)
+            o_p = packet.packet_plain(room.bvh, *rays, any_hit=True)
+            bad = (o_k != o_p).nonzero()[:, 0]
+            assert bad.numel() <= max(1, rays[0].shape[0] // 10000)
+            assert near_boundary(torch, room.geometry, room.meta.n_tri, *(r[bad] for r in rays), None).all()
+            assert not o_k[rays[3] < rays[2]].any()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+def test_packet_deep_chain_traverses_or_raises(card):
+    """A chain of nested boxes 32 levels deep (31 stack entries down the
+    chain) traverses fully and finds what the twin finds; 33 levels raise
+    on the host before the launch."""
+    scene = chain_scene(packet._lib().tt_packet_stack_size(), "cuda")
+    n = 256
+    rng = np.random.default_rng(2)
+    down = np.arange(n) < n // 2
+    ro = np.column_stack([rng.uniform(0.0, 0.5, n), rng.uniform(0.0, 0.5, n), np.where(down, 40.0, -1.0)])
+    rd = np.column_stack([rng.normal(0, 0.005, n), rng.normal(0, 0.005, n), np.where(down, -1.0, 1.0)])
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    rays = [torch.tensor(a, dtype=torch.float32, device="cuda").contiguous()
+            for a in (ro, rd, np.full(n, 1e-4), np.full(n, np.inf))]
+    k = packet.closest(scene.bvh, *rays)
+    occ = packet.occluded(scene.bvh, *rays)
+    p = packet.packet_plain(scene.bvh, *rays)
+    assert torch.equal(k[3], p[3]) and torch.allclose(k[0], p[0], rtol=1e-6, atol=0)
+    assert set(k[3].tolist()) == {0, scene.meta.n_tri - 1} and occ.all()
+    too_deep = chain_scene(packet._lib().tt_packet_stack_size() + 1, "cuda")
+    _launch.reset_launches()
+    with pytest.raises(RuntimeError, match="stack"):
+        packet.closest(too_deep.bvh, *rays)
+    with pytest.raises(RuntimeError, match="stack"):
+        packet.occluded(too_deep.bvh, *rays)
+    assert not any(_launch.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_packet_odd_sizes_dead_and_padded_lanes(room, room_rays):
+    """n = 0, 1 and 1000 (not a multiple of 32 or of the block): answers
+    equal the full batch's; dead lanes (tmax = -3.4e38) and padded lanes
+    (ro = rd = 0, tmax = -1) miss in both modes."""
+    ro, rd, tmin, tmax = (r[:1000].clone() for r in room_rays)
+    tmax[::3] = -3.4e38
+    ro[1::7], rd[1::7], tmax[1::7] = 0.0, 0.0, -1.0
+    t, u, v, prim = packet.closest(room.bvh, ro, rd, tmin, tmax)
+    occ = packet.occluded(room.bvh, ro, rd, tmin, tmax)
+    for m in (0, 1):
+        part = [x[:m].contiguous() for x in (ro, rd, tmin, tmax)]
+        k = packet.closest(room.bvh, *part)
+        assert torch.equal(k[3], prim[:m]) and torch.equal(k[0], t[:m])
+        assert torch.equal(packet.occluded(room.bvh, *part), occ[:m])
+    off = tmax < tmin
+    assert off.sum() > 300 and (prim[off] == -1).all() and (t[off] == brute.BIG).all()
+    assert not occ[off].any() and (prim[~off] >= 0).any()

@@ -60,7 +60,7 @@ def _scene_pair(tag):
     builders = (cornell_box(8, 8), port_builder(cornell_box, 8, 8))
     for b in builders:
         ids = [b.add_material(tag, **params) for params in ARMS[tag][0]]
-    return builders[0].build(), builders[1].build(), np.array(ids)
+    return builders[0].build(), builders[1].build(device="cpu"), np.array(ids)
 
 
 def _directions(rng, geo_n, n):

@@ -61,7 +61,7 @@ def test_mixed_lights_render_matches_jax(rr_depth):
         b.add_point_light((0.5, 0.8, -0.5), (0.5, 0.5, 0.5))
     kw = dict(spp=4, max_depth=3, seed=11, rr_depth=rr_depth, max_rays_per_pass=512)
     img_j = j_render(builders[0].build(), JOptions(**kw))
-    img_t = t_render(builders[1].build(), TOptions(**kw))
+    img_t = t_render(builders[1].build(device="cpu"), TOptions(**kw))
     _compare(img_t, img_j)
 
 

@@ -78,7 +78,7 @@ def test_bvh_sized_scene_raises():
     scenes = []
     for b in (SceneBuilder(), JaxBuilder()):
         b.add_mesh(grid, idx, b.add_material(0))
-        scenes.append(b.build())
+        scenes.append(b.build(device="cpu") if isinstance(b, SceneBuilder) else b.build())
     port, jax_scene = scenes
     assert port.bvh is not None and port.meta.n_tri == idx.shape[0]
     _assert_tables_equal(port, jax_scene)

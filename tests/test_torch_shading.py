@@ -42,7 +42,7 @@ def _scene_pair(textured=False):
             tex = b.add_texture_image(img)
             b.add_material(MAT_DIFFUSE, tex_kind=TEX_IMAGE, tex_image=tex,
                            tex_uvscale=(2.0, 3.0), tex_uvoffset=(0.25, -0.5))
-    return builders[0].build(), builders[1].build()
+    return builders[0].build(), builders[1].build(device="cpu")
 
 
 def _shade_points(rng_np, js, ps, mat_id):
@@ -99,7 +99,7 @@ def test_unported_material_raises(rng_np):
     a scene using one raises, naming the tag; mirror no longer does."""
     b = port_builder(cornell_box, mirror=True)
     b.add_material(MAT_DISNEY_METAL, roughness=0.3)
-    ps = b.build()
+    ps = b.build(device="cpu")
     assert {MAT_MIRROR, MAT_DISNEY_METAL} <= set(ps.meta.used_material_tags)
     with pytest.raises(NotImplementedError, match="disneymetal") as err:
         tb.bsdf_pdf(ps, None, torch.zeros((1, 3)), torch.zeros((1, 3)))

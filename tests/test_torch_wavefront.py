@@ -46,7 +46,7 @@ def _scan(scene, options, pix, samp):
 
 def _scenes(name):
     if name == "cbox":
-        return cornell_box(12, 12).build(), port_builder(cornell_box, 12, 12).build()
+        return cornell_box(12, 12).build(), port_builder(cornell_box, 12, 12).build(device="cpu")
     js = with_res(jax_parse(TEXTURED), 12, JCamera)
     return js, with_res(port_scene(js), 12, TCamera)
 

@@ -54,11 +54,18 @@ def port_builder(scene_fn, *args, **kwargs):
         return scene_fn(*args, **kwargs)
 
 
+class _CPUBuilder(tbuild.SceneBuilder):
+    """The port's SceneBuilder, building on the CPU unless told otherwise."""
+
+    def build(self, device="cpu", build_bvh="auto"):
+        return super().build(device, build_bvh)
+
+
 def port_soup(n_tri, **kwargs):
-    """tests/test_bvh.py's random triangle soup, built by the port."""
+    """tests/test_bvh.py's random triangle soup, built by the port on the CPU."""
     import tests.test_bvh as jbvh
 
-    with mock.patch.object(jbvh, "SceneBuilder", tbuild.SceneBuilder), \
+    with mock.patch.object(jbvh, "SceneBuilder", _CPUBuilder), \
             mock.patch.object(jbvh, "Camera", tcam.Camera):
         return jbvh.random_soup_scene(n_tri, **kwargs)
 

@@ -7,8 +7,8 @@ line and any failure raises, so the exit code is non-zero:
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
      source, all started together, and prints each kernel's registers,
-     shared memory, stack frame and spills (K3 must have no stack frame
-     and no spills);
+     shared memory, stack frame and spills (the kernels of brute.cu and
+     traverse.cu, K1-K3, must have no stack frame and no spills);
   cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
   brute-force path, K1/K2):
   3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
@@ -16,7 +16,9 @@ line and any failure raises, so the exit code is non-zero:
   4. main: render_image through the kernels (launch counters must show
      kernels only), then at 256x256 through the plain twins;
   5. times: the render's Mrays/s (bench.py's metric), active_fraction, and
-     each kernel's per-call time beside its twin's and its bound;
+     each kernel's per-call time beside its twin's and its bound; then K1
+     and K2 on the batches they get in one pass of the render, captured,
+     each held against the twins and timed beside its bound;
   room (scenes/room/room.xml, 1920x1080, 4 of the published 1024 spp,
   max_depth 6, seed 0; the wide-BVH path, K3 and, forced, K4/K5 and K6):
   6. room build: parse, BVH build, nodes (exact and quantised), wide depth,
@@ -36,7 +38,8 @@ line and any failure raises, so the exit code is non-zero:
   mis (scenes/mis/mis.xml at its published 512x512, 128 spp, max_depth 6;
   blinn_microfacet plates and sphere lights on the brute path, K1/K2):
   10. main: render_image through K1/K2 alone, then at 128x128 against the
-      plain twins; times;
+      plain twins; times, and K1/K2 on the captured batches of one pass,
+      as in 5;
   textured (scenes/textured/textured.xml at its published 512x512, 64 spp,
   max_depth 6; an open BVH scene, which the default policy sends through
   the wavefront-refill loop, on K3):
@@ -47,7 +50,9 @@ line and any failure raises, so the exit code is non-zero:
       one refill pass.
 
 It then prints each cell's launches, the kernels' JSON line (with each
-kernel's bound_ms and bound_by) and, last, the device JSON line. It fails
+kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
+and bounds in cbox and mis, and their launches in mis) and, last, the
+device JSON line. It fails
 without a CUDA device, and when run outside a checkout of the repo.
 """
 
@@ -127,8 +132,9 @@ def ptxas_report(log):
 
 
 def build_phase(_build, modules):
-    """nvcc for every source at once, then load each library. K3's kernels
-    must report 0 bytes of stack frame and no spills."""
+    """nvcc for every source at once, then load each library. The kernels of
+    brute.cu (K1, K2) and traverse.cu (K3) must report 0 bytes of stack frame
+    and no spills."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
@@ -138,9 +144,9 @@ def build_phase(_build, modules):
         report = ptxas_report(log)
         phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; "
               + "; ".join(f"{k}: {used}; {frame}" for k, used, frame in report))
-        if name == "traverse" and (not report or any(
+        if name in ("brute", "traverse") and (not report or any(
                 frame != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for _, _, frame in report)):
-            raise RuntimeError(f"K3 uses local memory: {report}")
+            raise RuntimeError(f"{lib.name}'s kernels use local memory: {report}")
     phase("build", f"{len(SOURCES)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
 
 
@@ -180,28 +186,31 @@ def bvh_bound(torch, packet, bvh, rays, any_hit, seed=0):
 
 
 def capture_queries(torch, scene, options):
-    """K3's inputs, copied, from the first pass of a render of `scene`:
-    [("closest" or "anyhit", [ro, rd, tmin, tmax])] in launch order."""
-    from take_tpu_torch.geometry import packet
+    """The inputs of the scene's intersection kernels, copied, from the first
+    pass of a render of `scene`: K3's (packet.closest/occluded) for a BVH
+    scene, else K1/K2's (brute.closest/occluded). Returns [("closest" or
+    "anyhit", [ro, rd, tmin, tmax])] in launch order."""
+    from take_tpu_torch.geometry import brute, packet
 
     render = importlib.import_module("take_tpu_torch.render")  # the package's `render` is a function
+    module = brute if scene.bvh is None else packet
     calls, one_pass = [], render.render_pass
 
     class FirstPass(Exception):
         pass
 
     def recording(kind, fn):
-        def wrapped(bvh, *rays):
-            calls.append((kind, [r.clone() for r in rays]))
-            return fn(bvh, *rays)
+        def wrapped(*args):  # the rays are the last four arguments of each
+            calls.append((kind, [r.clone() for r in args[-4:]]))
+            return fn(*args)
         return wrapped
 
     def first_pass(*a, **k):
         one_pass(*a, **k)
         raise FirstPass
 
-    with mock.patch.object(packet, "closest", recording("closest", packet.closest)), \
-            mock.patch.object(packet, "occluded", recording("anyhit", packet.occluded)), \
+    with mock.patch.object(module, "closest", recording("closest", module.closest)), \
+            mock.patch.object(module, "occluded", recording("anyhit", module.occluded)), \
             mock.patch.object(render, "render_pass", first_pass):
         try:
             render.render_image(scene, options)
@@ -283,7 +292,7 @@ def near_boundary(torch, g, n_tri, ro, rd, tmin, tmax, prims):
     (within REL_T relative), while being a hit within those tolerances."""
     from take_tpu_torch.geometry.brute import tri_uvt
 
-    t, u, v, _ = tri_uvt(g.tri_affine_o, g.tri_affine_d, n_tri, ro, rd, tmin, tmax)
+    t, u, v, _ = tri_uvt(g.tri_rows, n_tri, ro, rd, tmin, tmax)
     e = torch.minimum(torch.minimum(u, v), 1.0 - (u + v))
     slack = REL_T * torch.clamp(t.abs(), min=1.0)
     r = torch.minimum(t - tmin[:, None], tmax[:, None] - t)
@@ -311,11 +320,10 @@ def fp32_bounds(torch, g, prim, ro, rd):
     The bounds are twice that first-order estimate.
     """
     eps = 2.0 ** -24
-    tpad = g.tri_affine_d.shape[1] // 3
-    p = prim.long()
+    rows = g.tri_rows[prim.long()]
     oh = torch.cat([ro, torch.ones_like(ro[:, :1])], dim=1)
-    ao = [g.tri_affine_o[:, k * tpad + p].T for k in range(3)]  # [M, 4]
-    ad = [g.tri_affine_d[:, k * tpad + p].T for k in range(3)]  # [M, 3]
+    ao = [rows[:, 4 * k:4 * k + 4] for k in range(3)]  # [M, 4]
+    ad = [rows[:, 12 + 3 * k:15 + 3 * k] for k in range(3)]  # [M, 3]
     s = [(a * oh).sum(1) for a in ao]
     d = [(a * rd).sum(1) for a in ad]
     S = [(a * oh).abs().sum(1) for a in ao]
@@ -399,16 +407,16 @@ def anyhit_gate(torch, label, scene, o_k, o_p, rays, dead):
     odead = bool((~o_k[dead]).all() and (~o_p[dead]).all())
     line = (f"{label}: occ agrees on {ofrac:.6f} of rays ({int(o_k.sum())} occluded), "
             f"{n_obad} mismatches, {o_unexplained} not near a boundary; dead+padded lanes clear {odead}")
-    phase("parity", line)
     if o_unexplained or not odead:
+        phase("parity", line)
         raise RuntimeError(f"{label} disagrees with its plain twin")
     return float(o_unexplained > 0), line
 
 
 def cbox_parity(torch, brute, scene, rays, dead):
     g, n_tri = scene.geometry, scene.meta.n_tri
-    a_k, t_k, u_k, v_k, _, p_k = brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
-    a_p, t_p, u_p, v_p, _, p_p = brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
+    a_k, t_k, u_k, v_k, _, p_k = brute.closest(g.tri_rows, g.tri_attr, n_tri, *rays)
+    a_p, t_p, u_p, v_p, _, p_p = brute.closest_plain(g.tri_rows, g.tri_attr, n_tri, *rays)
     torch.cuda.synchronize()
     err_closest, both, line = closest_gate(torch, "K1 closest", scene, (t_k, u_k, v_k, p_k),
                                            (t_p, u_p, v_p, p_p), rays, dead)
@@ -416,10 +424,11 @@ def cbox_parity(torch, brute, scene, rays, dead):
     phase("parity", f"{line}; attrs equal {attrs_equal}")
     if not attrs_equal:
         raise RuntimeError("K1 disagrees with closest_plain")
-    o_k = brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
-    o_p = brute.occluded_plain(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
+    o_k = brute.occluded(g.tri_rows, n_tri, *rays)
+    o_p = brute.occluded_plain(g.tri_rows, n_tri, *rays)
     torch.cuda.synchronize()
-    err_anyhit, _ = anyhit_gate(torch, "K2 any-hit", scene, o_k, o_p, rays, dead)
+    err_anyhit, line = anyhit_gate(torch, "K2 any-hit", scene, o_k, o_p, rays, dead)
+    phase("parity", line)
     return err_closest, err_anyhit
 
 
@@ -450,7 +459,8 @@ def room_parity(torch, packet, cluster, sweep, scene, rays, dead):
     ):
         o_k, o_p = kernel(), twin()
         torch.cuda.synchronize()
-        err[key], _ = anyhit_gate(torch, label, scene, o_k, o_p, rays, dead)
+        err[key], line = anyhit_gate(torch, label, scene, o_k, o_p, rays, dead)
+        phase("parity", line)
     return err
 
 
@@ -463,10 +473,14 @@ def with_res(scene, width, height=None):
 
 
 def time_call(torch, fn, warmup=3, iters=20):
-    """Milliseconds per call by CUDA events, after `warmup` calls."""
+    """Milliseconds per call by CUDA events, after `warmup` calls. The card
+    first spins for ~5 ms, so that the host has queued the timed calls
+    before they run: a call shorter than its wrapper's host work (~0.1 ms)
+    is timed on the card, not at the host's rate."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)  # clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -554,7 +568,8 @@ def timed_render(torch, render_image, scene, options):
 
 def cbox_cell(torch, dev, out_dir):
     """cbox: K1/K2 parity, the 1024x1024 render through K1/K2 alone, the
-    256x256 kernels-vs-twins check, times. Returns the kernels' entries."""
+    256x256 kernels-vs-twins check, times, and K1/K2 on the batches of one
+    pass. Returns the kernels' entries and the render's launches."""
     from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image
@@ -592,8 +607,8 @@ def cbox_cell(torch, dev, out_dir):
     dt, mrays = timed_render(torch, render_image, scene, options)
     af = active_fraction(torch, scene, options, 2)
     g, n_tri = scene.geometry, scene.meta.n_tri
-    args_c = (g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
-    args_o = (g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
+    args_c = (g.tri_rows, g.tri_attr, n_tri, *rays)
+    args_o = (g.tri_rows, n_tri, *rays)
     ms = {
         "closest": time_call(torch, lambda: brute.closest(*args_c)),
         "closest_plain": time_call(torch, lambda: brute.closest_plain(*args_c)),
@@ -604,15 +619,15 @@ def cbox_cell(torch, dev, out_dir):
     phase("times", f"cbox render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f}; "
           f"per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
           + "; bounds " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]}, {v[2]})" for k, v in bounds.items()))
+    passes = brute_captured(torch, brute, scene, capture_queries(torch, scene, options),
+                            f"cbox {RES}x{RES} d{MAX_DEPTH}")
     return [
-        dict(name="closest", route="cuda", source="take_tpu_torch/csrc/brute.cu",
-             replaces="take_tpu/geometry/pallas_brute.py:77", launches=launches["closest"],
-             max_abs_err=err_closest, ms=ms["closest"], plain_ms=ms["closest_plain"],
-             bound_ms=bounds["closest"][0], bound_by=bounds["closest"][1], library_ms=None),
-        dict(name="anyhit", route="cuda", source="take_tpu_torch/csrc/brute.cu",
-             replaces="take_tpu/geometry/pallas_brute.py:129", launches=launches["anyhit"],
-             max_abs_err=err_anyhit, ms=ms["anyhit"], plain_ms=ms["anyhit_plain"],
-             bound_ms=bounds["anyhit"][0], bound_by=bounds["anyhit"][1], library_ms=None),
+        dict(name=key, route="cuda", source="take_tpu_torch/csrc/brute.cu",
+             replaces=f"take_tpu/geometry/pallas_brute.py:{line}", launches=launches[key],
+             max_abs_err=err, ms=ms[key], plain_ms=ms[f"{key}_plain"],
+             bound_ms=bounds[key][0], bound_by=bounds[key][1], library_ms=None,
+             cbox_pass_ms=passes[key][0], cbox_pass_bound_ms=passes[key][1])
+        for key, line, err in (("closest", 77, err_closest), ("anyhit", 129, err_anyhit))
     ], launches
 
 
@@ -630,16 +645,58 @@ def brute_bounds(torch, scene, rays):
     tests = 0
     for s in range(0, n, 1 << 16):
         sl = slice(s, s + (1 << 16))
-        ok = tri_uvt(g.tri_affine_o, g.tri_affine_d, n_tri, ro[sl], rd[sl], tmin[sl], tmax[sl])[3]
+        ok = tri_uvt(g.tri_rows, n_tri, ro[sl], rd[sl], tmin[sl], tmax[sl])[3]
         first = torch.where(ok.any(1), ok.to(torch.int8).argmax(1) + 1, n_tri)
         tests += int(torch.where(tmax[sl] >= tmin[sl], first, 0).sum())
-    tables = g.tri_affine_o.nbytes + g.tri_affine_d.nbytes
+    tables = g.tri_rows.nbytes
     return {
         "closest": (*bound(n * (RAY_BYTES + HIT_BYTES + ATTR_BYTES) + tables + g.tri_attr.nbytes,
                            live * n_tri * TRI_FLOPS), f"{live} live rays x {n_tri} triangles"),
         "anyhit": (*bound(n * (RAY_BYTES + OCC_BYTES) + tables, tests * TRI_FLOPS),
                    f"{tests / max(live, 1):.2f} triangles per live ray"),
     }
+
+
+def brute_captured(torch, brute, scene, calls, label):
+    """K1/K2 on the batches captured from one pass of a render: each held
+    against its plain twin by closest_gate / anyhit_gate (the attribute rows
+    of agreeing hits equal), timed (CUDA events, 10 calls after 3 warm-ups)
+    and bounded by brute_bounds on that batch. Returns {kind: [kernel ms,
+    bound ms]} summed over the pass."""
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    sums = {"closest": [0.0, 0.0], "anyhit": [0.0, 0.0]}
+    rows = []
+    for j, (kind, rays) in enumerate(calls):
+        dead = rays[3] <= 0
+        if kind == "closest":
+            def fn():
+                return brute.closest(g.tri_rows, g.tri_attr, n_tri, *rays)
+            a_k, t_k, u_k, v_k, _, p_k = fn()
+            a_p, t_p, u_p, v_p, _, p_p = brute.closest_plain(g.tri_rows, g.tri_attr, n_tri, *rays)
+            torch.cuda.synchronize()
+            _, both, _ = closest_gate(torch, f"{label} batch {j} K1", scene, (t_k, u_k, v_k, p_k),
+                                      (t_p, u_p, v_p, p_p), rays, dead)
+            if not torch.equal(a_k[both], a_p[both]):
+                raise RuntimeError(f"{label} batch {j}: K1's attribute rows disagree with closest_plain's")
+            note = f"{int((p_k >= 0).sum())} hits"
+        else:
+            def fn():
+                return brute.occluded(g.tri_rows, n_tri, *rays)
+            o_k = fn()
+            o_p = brute.occluded_plain(g.tri_rows, n_tri, *rays)
+            torch.cuda.synchronize()
+            anyhit_gate(torch, f"{label} batch {j} K2", scene, o_k, o_p, rays, dead)
+            note = f"{int(o_k.sum())} occluded"
+        ms = time_call(torch, fn, iters=10)
+        b_ms, by, what = brute_bounds(torch, scene, rays)[kind]
+        sums[kind][0] += ms
+        sums[kind][1] += b_ms
+        rows.append(f"{j}:{kind} n={rays[0].shape[0]} live {(rays[3] > 0).float().mean().item():.3f} {note} "
+                    f"{ms:.4f} ms (bound {b_ms:.4f} ms, {by}, {what})")
+    phase("times", f"{label} K1/K2 on the captured batches of one pass, each within the twin gates: "
+          + "; ".join(rows) + "; per pass "
+          + ", ".join(f"{k} {v[0]:.4f} ms (bound {v[1]:.4f} ms)" for k, v in sums.items()))
+    return sums
 
 
 def room_cell(torch, dev, out_dir):
@@ -676,7 +733,7 @@ def room_cell(torch, dev, out_dir):
     t_upload = time.perf_counter() - t0
     bvh = room.bvh
     groups = (room.geometry, room.materials, room.lights, room.textures)
-    tensors = [getattr(grp, f.name) for grp in groups for f in dataclasses.fields(grp)]
+    tensors = [getattr(grp, f.name) for grp in groups for f in dataclasses.fields(grp) if f.compare]
     table_bytes = sum(x.nbytes for x in tensors if x.is_cuda)
     host_bytes = sum(x.nbytes for x in tensors if not x.is_cuda)
     bvh_bytes = sum(getattr(bvh, n).nbytes for n in ("node_min", "node_max", "node_child", "node_count",
@@ -794,7 +851,8 @@ def room_cell(torch, dev, out_dir):
 def mis_cell(torch, dev, out_dir):
     """mis (blinn_microfacet plates, sphere lights; the brute path): the
     published 512x512, 128 spp, d6 render through K1/K2 alone, the 128x128
-    kernels-vs-twins check, times."""
+    kernels-vs-twins check, times, and K1/K2 on the batches of one pass.
+    Returns (launches, per-pass sums of brute_captured)."""
     from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image
@@ -828,7 +886,9 @@ def mis_cell(torch, dev, out_dir):
     dt, mrays = timed_render(torch, render_image, scene, options)
     af = active_fraction(torch, scene, options, 1)
     phase("times", f"mis render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} (1 spp)")
-    return launches
+    passes = brute_captured(torch, brute, scene, capture_queries(torch, scene, options),
+                            f"mis {cam.width}x{cam.height} d{MIS_DEPTH}")
+    return launches, passes
 
 
 def textured_cell(torch, dev, out_dir):
@@ -913,7 +973,10 @@ def main():
     kernels, launches = cbox_cell(torch, dev, out_dir)
     room_kernels, launches_room = room_cell(torch, dev, out_dir)
     kernels += room_kernels
-    launches_mis = mis_cell(torch, dev, out_dir)
+    launches_mis, passes_mis = mis_cell(torch, dev, out_dir)
+    for entry in kernels[:2]:  # K1, K2
+        entry.update(launches_mis=launches_mis[entry["name"]], mis_pass_ms=passes_mis[entry["name"]][0],
+                     mis_pass_bound_ms=passes_mis[entry["name"]][1])
     launches_tex = textured_cell(torch, dev, out_dir)
     phase("times", f"launches per default render: cbox {launches}, room {launches_room}, mis {launches_mis}, "
           f"textured {launches_tex}")

@@ -53,6 +53,30 @@ reads the quantised nodes, any other (the parent) the exact node rows
      kernel;
   4. renders: room and textured through each variant, in the same order.
 
+`python3 prof_room.py --brute [--check]` holds K1/K2 (csrc/brute.cu) against
+the kernel they replaced and against staged variants in the same way:
+
+    mkdir -p build/brute_ab/parent
+    git show <parent>:take_tpu_torch/csrc/brute.cu > build/brute_ab/parent/brute.cu
+
+or a variant of the current source at build/brute_ab/<name>.cu. Each is
+built with nvcc in parallel, beside the package's own source ("new"), and
+called the same way; the package's wrappers run too, and its K2 over rows
+sorted by triangle area, both ways. It prints:
+
+  1. the card, and ptxas's report of every variant;
+  2. check: every variant on chip_smoke's 2^20 cbox rays and on the
+     captured batches of one pass of cbox (1024x1024, 16 spp, d4) and of
+     mis (512x512, 128 spp, d6), held against the plain twins by
+     chip_smoke's gates, and the rays whose outputs differ in any bit from
+     the parent's (--check stops here);
+  3. batches: per-pass sums of each variant's time on the three sets (CUDA
+     events, 10 calls after 3 warm-ups per batch), the variants in turn and
+     back, each batch's time for the parent and the package, and the
+     per-pass bounds (chip_smoke.brute_bounds);
+  4. renders: cbox and mis through each variant, in the same order;
+  5. profile: one pass of mis (4 spp of 512x512) under torch.profiler.
+
 Times are Mrays/s by bench.py's metric, rays = W * H * spp * (1 + 2 (d + 1)).
 """
 
@@ -71,6 +95,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ROOM = ROOT / "scenes" / "room" / "room.xml"
 TEXTURED = ROOT / "scenes" / "textured" / "textured.xml"
+CBOX = ROOT / "scenes" / "cbox" / "cbox.xml"
+MIS = ROOT / "scenes" / "mis" / "mis.xml"
 SPP, DEPTH, SEED = 4, 6, 0
 RENDERS = 6  # K3-route renders, for the median and the spread
 TEX_SPP = 64
@@ -84,6 +110,8 @@ def smi(query):
 
 def kind(name):
     low = name.lower()
+    if "closest_kernel" in low or "anyhit_kernel" in low:
+        return "K1/K2"
     if "packet_kernel" in low:
         return "K3"
     if "cluster_kernel" in low:
@@ -288,7 +316,7 @@ def k3(torch, render_image, parse_scene_file, RenderOptions):
         torch.cuda.synchronize()
         _, _, line = cs.closest_gate(torch, f"{name} closest", room, got_c, want_c, mix, dead)
         print(f"[check] {line}", flush=True)
-        cs.anyhit_gate(torch, f"{name} any-hit", room, got_o, want_o, mix, dead)
+        print(f"[check] {cs.anyhit_gate(torch, f'{name} any-hit', room, got_o, want_o, mix, dead)[1]}", flush=True)
     if "--check" in sys.argv[1:]:
         return
     room_opts = RenderOptions(spp=SPP, max_depth=DEPTH, seed=SEED)
@@ -333,6 +361,191 @@ def k3(torch, render_image, parse_scene_file, RenderOptions):
               flush=True)
 
 
+def brute_variants(torch, brute, _build):
+    """{name: (closest(g, n_tri, *rays) -> (attrs, t, u, v, prim), occluded(g,
+    n_tri, *rays) -> occ)}: the staged sources under build/brute_ab and the
+    package's own source ("new"), built with nvcc in parallel and called
+    alike (a source whose entry points take `aff_o`, the parent, reads the
+    axis-major affine tables; any other the rows `geometry.tri_rows`), then
+    the package's wrappers ("package", which also compute `found`) and the
+    package's K2 over rows sorted by triangle area, increasing
+    ("small_first": a room's enclosing walls last) and decreasing
+    ("big_first")."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    staged = ROOT / "build" / "brute_ab"
+    staged.mkdir(parents=True, exist_ok=True)
+    srcs = sorted([*staged.glob("*.cu"), *staged.glob("*/brute.cu")]) + [_build.CSRC / "brute.cu"]
+
+    def build(src):
+        name = "new" if src.parent == _build.CSRC else src.stem if src.parent == staged else src.parent.name
+        lib_path = staged / f"{name}.so"
+        return name, src, lib_path, subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)], capture_output=True, text=True)
+
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(build, srcs))
+    out = {}
+    for name, src, lib_path, proc in built:
+        print(f"[ptxas {name}] exit {proc.returncode}\n{proc.stderr}{proc.stdout}", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}")
+        lib = ctypes.CDLL(str(lib_path))
+        parent = "aff_o" in src.read_text()
+        head = [P, P, I, I] if parent else [P, I]
+        lib.tt_brute_closest.argtypes = head + [P] * 5 + [I] + [P] * 6
+        lib.tt_brute_occluded.argtypes = head + [P] * 4 + [I, P, P]
+
+        def make(lib, parent):
+            def tables(g, n_tri):
+                if parent:
+                    return [g.tri_affine_o.data_ptr(), g.tri_affine_d.data_ptr(), g.tri_attr.shape[0], n_tri]
+                return [g.tri_rows.data_ptr(), n_tri]
+
+            def closest(g, n_tri, *rays):
+                attrs, t, u, v, prim = brute._outputs(rays[0].shape[0], rays[0].device)
+                code = lib.tt_brute_closest(*tables(g, n_tri), g.tri_attr.data_ptr(), *(r.data_ptr() for r in rays),
+                                            rays[0].shape[0], attrs.data_ptr(), t.data_ptr(), u.data_ptr(),
+                                            v.data_ptr(), prim.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return attrs, t, u, v, prim
+
+            def occluded(g, n_tri, *rays):
+                occ = torch.empty(rays[0].shape[0], dtype=torch.bool, device=rays[0].device)
+                code = lib.tt_brute_occluded(*tables(g, n_tri), *(r.data_ptr() for r in rays), rays[0].shape[0],
+                                             occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return occ
+            return closest, occluded
+
+        out[name] = make(lib, parent)
+
+    k1, k2 = brute.closest, brute.occluded  # the package's, also while a render patches them
+
+    def closest(g, n_tri, *rays):
+        attrs, t, u, v, _, prim = k1(g.tri_rows, g.tri_attr, n_tri, *rays)
+        return attrs, t, u, v, prim
+
+    out["package"] = (closest, lambda g, n_tri, *rays: k2(g.tri_rows, n_tri, *rays))
+    for name, descending in (("small_first", False), ("big_first", True)):
+        by_area = {}
+
+        def occluded_by_area(g, n_tri, *rays, by_area=by_area, descending=descending):
+            if id(g) not in by_area:
+                area = torch.linalg.cross(g.tri_e1[:n_tri], g.tri_e2[:n_tri]).norm(dim=1)
+                rows = g.tri_rows.clone()
+                rows[:n_tri] = g.tri_rows[:n_tri][area.argsort(descending=descending, stable=True)]
+                by_area[id(g)] = rows
+            return k2(by_area[id(g)], n_tri, *rays)
+
+        out[name] = (closest, occluded_by_area)
+    print(f"[ptxas package]\n{_build.build('brute')[2]}", flush=True)
+    return out
+
+
+def brute_ab(torch, render_image, parse_scene_file, RenderOptions):
+    """K1/K2: the staged variants against the package's kernel (see the
+    module docstring)."""
+    import chip_smoke as cs
+    from take_tpu_torch.geometry import brute, _build
+
+    cbox = cs.with_res(parse_scene_file(str(CBOX), device="cuda"), 1024)
+    mis = parse_scene_file(str(MIS), device="cuda")
+    ks = brute_variants(torch, brute, _build)
+    names = list(ks)
+    mix, _ = cs.make_rays(torch, cbox, np.random.default_rng(SEED), 1 << 20,
+                          np.array([1.0, 1.0, 1.0]), np.array([555.0, 547.0, 558.0]))
+    opts = {"cbox": RenderOptions(spp=16, max_depth=4, seed=SEED), "mis": RenderOptions(spp=128, max_depth=6, seed=SEED)}
+    sets = {
+        "mix": (cbox, [("closest", mix), ("anyhit", mix)]),
+        "cbox": (cbox, cs.capture_queries(torch, cbox, opts["cbox"])),
+        "mis": (mis, cs.capture_queries(torch, mis, opts["mis"])),
+    }
+    ref = "parent" if "parent" in ks else "package"
+    for label, (scene, calls) in sets.items():
+        g, n_tri = scene.geometry, scene.meta.n_tri
+        diff = defaultdict(lambda: defaultdict(int))
+        for j, (kind, rays) in enumerate(calls):
+            dead = rays[3] <= 0
+            if kind == "closest":
+                a_p, t_p, u_p, v_p, _, p_p = brute.closest_plain(g.tri_rows, g.tri_attr, n_tri, *rays)
+                want = ks[ref][0](g, n_tri, *rays)
+                for name, (closest, _) in ks.items():
+                    got = closest(g, n_tri, *rays)
+                    torch.cuda.synchronize()
+                    _, both, _ = cs.closest_gate(torch, f"{label} {j} {name} K1", scene, got[1:],
+                                                 (t_p, u_p, v_p, p_p), rays, dead)
+                    if not torch.equal(got[0][both], a_p[both]):
+                        raise RuntimeError(f"{name}: K1's attribute rows disagree with closest_plain's")
+                    same = torch.ones_like(p_p, dtype=torch.bool)
+                    for x, y in zip(got[1:], want[1:]):
+                        same &= x.view(torch.int32) == y.view(torch.int32)
+                    same &= (got[0].view(torch.int32) == want[0].view(torch.int32)).all(1)
+                    diff[name]["closest"] += int((~same).sum())
+                diff["rays"]["closest"] += rays[0].shape[0]
+            else:
+                o_p = brute.occluded_plain(g.tri_rows, n_tri, *rays)
+                want = ks[ref][1](g, n_tri, *rays)
+                for name, (_, occluded) in ks.items():
+                    got = occluded(g, n_tri, *rays)
+                    torch.cuda.synchronize()
+                    cs.anyhit_gate(torch, f"{label} {j} {name} K2", scene, got, o_p, rays, dead)
+                    diff[name]["anyhit"] += int((got != want).sum())
+                diff["rays"]["anyhit"] += rays[0].shape[0]
+        print(f"[check {label}] every variant within the twin gates on {len(calls)} batches; rays whose outputs "
+              f"differ from {ref}'s in any bit (K1: attrs, t, u, v, prim; K2: occ): " + "; ".join(
+                  f"{n} {dict(v)}" for n, v in diff.items()), flush=True)
+    if "--check" in sys.argv[1:]:
+        return
+    order = names + names[::-1]
+    for label, (scene, calls) in sets.items():
+        g, n_tri = scene.geometry, scene.meta.n_tri
+        sums, per_batch = defaultdict(lambda: defaultdict(list)), defaultdict(lambda: defaultdict(list))
+        for name in order:
+            closest, occluded = ks[name]
+            tot = defaultdict(float)
+            for j, (kind, rays) in enumerate(calls):
+                fn = closest if kind == "closest" else occluded
+                ms = cs.time_call(torch, lambda: fn(g, n_tri, *rays), iters=10)
+                tot[kind] += ms
+                per_batch[name][j].append(ms)
+            for kind, v in tot.items():
+                sums[kind][name].append(v)
+        for kind, by in sums.items():
+            print(f"[batches {label}] {kind} per pass, ms (in order {order}): " + "; ".join(
+                f"{n} {', '.join(f'{x:.4f}' for x in v)} (mean {statistics.mean(v):.4f})" for n, v in by.items()),
+                flush=True)
+        for name in (ref, "package"):
+            print(f"[per batch {label} {name}] " + "; ".join(
+                f"{j}:{calls[j][0]} {statistics.mean(v):.4f}" for j, v in sorted(per_batch[name].items())), flush=True)
+        if label != "mix":
+            bounds = defaultdict(float)
+            for kind, rays in calls:
+                bounds[kind] += cs.brute_bounds(torch, scene, rays)[kind][0]
+            print(f"[bounds {label}] per pass: " + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items()), flush=True)
+    for label in ("cbox", "mis"):
+        scene = sets[label][0]
+        render_image(scene, dataclasses.replace(opts[label], spp=4))  # warm-up
+        times = defaultdict(list)
+        for name in order:
+            closest, occluded = ks[name]
+
+            def k1(rows, attr, n_tri, *rays):
+                attrs, t, u, v, prim = closest(scene.geometry, n_tri, *rays)
+                return attrs, t, u, v, prim >= 0, prim
+
+            with mock.patch.object(brute, "closest", k1), \
+                    mock.patch.object(brute, "occluded", lambda rows, n_tri, *r: occluded(scene.geometry, n_tri, *r)):
+                dt, _ = timed(torch, render_image, scene, opts[label], f"{label} through {name}")
+            times[name].append(dt)
+        print(f"[renders {label}] " + "; ".join(f"{n} {', '.join(f'{x:.4f}' for x in v)} s" for n, v in times.items()),
+              flush=True)
+    # one pass of mis (2^20 paths: 4 spp of 512x512) through the package's kernels
+    profile_call(torch, lambda: render_image(mis, dataclasses.replace(opts["mis"], spp=4)), "mis, one pass")
+
+
 def main():
     import torch
 
@@ -344,7 +557,8 @@ def main():
     from take_tpu_torch.scene.types import RenderOptions
 
     print(f"[card] {smi('name,power.limit')}", flush=True)
-    run = textured if "--textured" in sys.argv[1:] else k3 if "--k3" in sys.argv[1:] else room
+    args = sys.argv[1:]
+    run = textured if "--textured" in args else k3 if "--k3" in args else brute_ab if "--brute" in args else room
     run(torch, render_image, parse_scene_file, RenderOptions)
 
 

@@ -8,9 +8,12 @@ runs. Beside it, the wrappers' argument checks and the launch-error check.
 import torch
 
 LAUNCHES = {
-    key: 0
-    for kernel in ("", "packet_", "cluster_", "sweep_")
-    for key in (f"{kernel}closest", f"{kernel}anyhit", f"{kernel}closest_plain", f"{kernel}anyhit_plain")
+    **{
+        key: 0
+        for kernel in ("", "packet_", "cluster_", "sweep_")
+        for key in (f"{kernel}closest", f"{kernel}anyhit", f"{kernel}closest_plain", f"{kernel}anyhit_plain")
+    },
+    "reference": 0,  # brute.reference, the K1/K2 reference kernel (no render path)
 }
 
 

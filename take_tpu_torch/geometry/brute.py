@@ -3,15 +3,17 @@
 `closest` (K1) and `occluded` (K2) replace the JAX package's Pallas kernels
 in take_tpu/geometry/pallas_brute.py (`_closest_kernel`, `_anyhit_kernel`);
 the CUDA source and its design note are in csrc/brute.cu. Both read the
-scene's affine tables as they are (`tri_affine_o` [4, 3 Tpad],
-`tri_affine_d` [3, 3 Tpad], axis-major) and sweep the first `n_tri`
-triangles.
+scene's triangle rows (`geometry.tri_rows` [Tpad, 24], built once per
+upload: scene/types.py::affine_rows) and sweep the first `n_tri` of them.
 
 Dispatch is by the device of the rays: a CUDA tensor launches the kernel
 (and raises if it cannot), a CPU tensor runs the plain twin
 (`closest_plain`, `occluded_plain`), which computes the same outputs in
 torch, one [N, T] array at a time, with the affine products taken element
-by element in a fixed order. `_launch.LAUNCHES` counts what ran.
+by element in a fixed order. `reference` launches the first design's
+one-ray-per-thread loop (csrc/brute.cu::reference_kernel), which the
+kernels are held to bit for bit on the card. `_launch.LAUNCHES` counts what
+ran.
 """
 
 import ctypes
@@ -24,6 +26,7 @@ from take_tpu_torch.scene.types import ATTR_DIM
 
 BIG = 3.4e38  # t of a miss
 DW_EPS = 1e-12  # parallel-ray reject on the (u, v, w)-frame direction
+ROW = 24  # floats in a triangle row
 
 
 # ---------------------------------------------------------------------------
@@ -31,27 +34,25 @@ DW_EPS = 1e-12  # parallel-ray reject on the (u, v, w)-frame direction
 # ---------------------------------------------------------------------------
 
 
-def tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
-    """All rays x the first n_tri triangles -> (t, u, v, ok), each [N, T].
+def tri_uvt(rows, n_tri, ro, rd, tmin, tmax):
+    """All rays x the first n_tri triangle rows -> (t, u, v, ok), each [N, T].
 
     The pairwise test of both kernels (and of take_tpu's `_tri_uvt`):
     t = -s_w / d_w, u = s_u + t d_u, v = s_v + t d_v, rejected when parallel,
     outside the triangle or outside [tmin, tmax]; rays with tmax <= 0 miss.
     """
-    tpad = aff_d.shape[1] // 3
+    r = rows[:n_tri]
     ox, oy, oz = ro[:, 0:1], ro[:, 1:2], ro[:, 2:3]
     dx, dy, dz = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
 
-    def s(k):
-        a = aff_o[:, k * tpad : k * tpad + n_tri]
-        return a[0] * ox + a[1] * oy + a[2] * oz + a[3]
+    def s(c):
+        return r[:, c] * ox + r[:, c + 1] * oy + r[:, c + 2] * oz + r[:, c + 3]
 
-    def d(k):
-        a = aff_d[:, k * tpad : k * tpad + n_tri]
-        return a[0] * dx + a[1] * dy + a[2] * dz
+    def d(c):
+        return r[:, c] * dx + r[:, c + 1] * dy + r[:, c + 2] * dz
 
-    su, sv, sw = s(0), s(1), s(2)
-    du, dv, dw = d(0), d(1), d(2)
+    su, sv, sw = s(0), s(4), s(8)
+    du, dv, dw = d(12), d(15), d(18)
     parallel = dw.abs() < DW_EPS
     inv_dw = 1.0 / torch.where(parallel, 1.0, dw)
     t = -sw * inv_dw
@@ -69,10 +70,10 @@ def tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
     return t, u, v, ok
 
 
-def closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
+def closest_plain(rows, attr, n_tri, ro, rd, tmin, tmax):
     """Plain twin of `closest`: same outputs, in torch."""
     _launch.LAUNCHES["closest_plain"] += 1
-    t, u, v, ok = tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
+    t, u, v, ok = tri_uvt(rows, n_tri, ro, rd, tmin, tmax)
     t_best, best = torch.where(ok, t, BIG).min(dim=1)  # first index on ties
     found = t_best < BIG
     pick = best[:, None]
@@ -83,10 +84,10 @@ def closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
     return attrs, t_best, u_best, v_best, found, prim
 
 
-def occluded_plain(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
+def occluded_plain(rows, n_tri, ro, rd, tmin, tmax):
     """Plain twin of `occluded`."""
     _launch.LAUNCHES["anyhit_plain"] += 1
-    return tri_uvt(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)[3].any(dim=1)
+    return tri_uvt(rows, n_tri, ro, rd, tmin, tmax)[3].any(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -100,28 +101,41 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = _build.load("brute")
-    lib.tt_brute_closest.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
+    lib.tt_brute_closest.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
     lib.tt_brute_closest.restype = _I
-    lib.tt_brute_occluded.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P]
+    lib.tt_brute_occluded.argtypes = [_P, _I, _P, _P, _P, _P, _I, _P, _P]
     lib.tt_brute_occluded.restype = _I
+    lib.tt_brute_reference.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P]
+    lib.tt_brute_reference.restype = _I
     return lib
 
 
-def _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
-    tpad = aff_d.shape[1] // 3
+def _check(rows, attr, n_tri, ro, rd, tmin, tmax):
+    """Check the kernels' inputs (`attr` may be None); returns N."""
+    tpad = rows.shape[0]
     if not 0 < n_tri <= tpad:
         raise ValueError(f"n_tri={n_tri} outside (0, {tpad}]")
     n = _launch.check_rays(ro, rd, tmin, tmax)
-    _launch.check("aff_o", aff_o, torch.float32, (4, 3 * tpad), ro.device)
-    _launch.check("aff_d", aff_d, torch.float32, (3, 3 * tpad), ro.device)
-    return n, tpad
+    for name, x, shape in (("rows", rows, (tpad, ROW)), ("attr", attr, (tpad, ATTR_DIM))):
+        if x is not None:
+            _launch.check(name, x, torch.float32, shape, ro.device)
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name}: the kernels read it as float4, so it must start 16-byte aligned")
+    return n
 
 
-def closest(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
+def _outputs(n, device):
+    """(attrs [n, ATTR_DIM], t, u, v [n], prim [n] int32), empty."""
+    attrs = torch.empty((n, ATTR_DIM), dtype=torch.float32, device=device)
+    t, u, v = (torch.empty(n, dtype=torch.float32, device=device) for _ in range(3))
+    return attrs, t, u, v, torch.empty(n, dtype=torch.int32, device=device)
+
+
+def closest(rows, attr, n_tri, ro, rd, tmin, tmax):
     """K1: closest hit of each ray against the first n_tri triangles.
 
     Args:
-        aff_o, aff_d: the scene's affine tables [4, 3 Tpad], [3, 3 Tpad].
+        rows: the scene's triangle rows `tri_rows` [Tpad, 24].
         attr: packed attribute rows [Tpad, ATTR_DIM].
         ro, rd: [N, 3] rays; tmin, tmax: [N].
     Returns:
@@ -130,15 +144,12 @@ def closest(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
         t = 3.4e38, prim = -1, and attrs, u, v are 0.
     """
     if not ro.is_cuda:
-        return closest_plain(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax)
-    n, tpad = _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
-    _launch.check("attr", attr, torch.float32, (tpad, ATTR_DIM), ro.device)
-    attrs = torch.empty((n, ATTR_DIM), dtype=torch.float32, device=ro.device)
-    t, u, v = (torch.empty(n, dtype=torch.float32, device=ro.device) for _ in range(3))
-    prim = torch.empty(n, dtype=torch.int32, device=ro.device)
+        return closest_plain(rows, attr, n_tri, ro, rd, tmin, tmax)
+    n = _check(rows, attr, n_tri, ro, rd, tmin, tmax)
+    attrs, t, u, v, prim = _outputs(n, ro.device)
     stream = torch.cuda.current_stream(ro.device).cuda_stream
     code = _lib().tt_brute_closest(
-        aff_o.data_ptr(), aff_d.data_ptr(), tpad, n_tri, attr.data_ptr(),
+        rows.data_ptr(), n_tri, attr.data_ptr(),
         ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
         attrs.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr(), stream,
     )
@@ -147,21 +158,40 @@ def closest(aff_o, aff_d, attr, n_tri, ro, rd, tmin, tmax):
     return attrs, t, u, v, prim >= 0, prim
 
 
-def occluded(aff_o, aff_d, n_tri, ro, rd, tmin, tmax):
+def occluded(rows, n_tri, ro, rd, tmin, tmax):
     """K2: whether any of the first n_tri triangles is hit in [tmin, tmax].
 
     Returns [N] bool.
     """
     if not ro.is_cuda:
-        return occluded_plain(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
-    n, tpad = _check_tables(aff_o, aff_d, n_tri, ro, rd, tmin, tmax)
+        return occluded_plain(rows, n_tri, ro, rd, tmin, tmax)
+    n = _check(rows, None, n_tri, ro, rd, tmin, tmax)
     occ = torch.empty(n, dtype=torch.bool, device=ro.device)
     stream = torch.cuda.current_stream(ro.device).cuda_stream
     code = _lib().tt_brute_occluded(
-        aff_o.data_ptr(), aff_d.data_ptr(), tpad, n_tri,
-        ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+        rows.data_ptr(), n_tri, ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
         occ.data_ptr(), stream,
     )
     _launch.raise_on(_lib(), code, "any-hit kernel")
     _launch.LAUNCHES["anyhit"] += 1
     return occ
+
+
+def reference(rows, attr, n_tri, ro, rd, tmin, tmax, any_hit=False):
+    """The one-ray-per-thread reference kernel, on the card only: `closest`'s
+    tuple, or with `any_hit` `occluded`'s answer."""
+    n = _check(rows, attr, n_tri, ro, rd, tmin, tmax)
+    if not ro.is_cuda:
+        raise ValueError("the reference kernel runs on the card only")
+    attrs, t, u, v, prim = _outputs(n, ro.device)
+    occ = torch.empty(n, dtype=torch.bool, device=ro.device)
+    stream = torch.cuda.current_stream(ro.device).cuda_stream
+    code = _lib().tt_brute_reference(
+        rows.data_ptr(), n_tri, attr.data_ptr(),
+        ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+        attrs.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(), prim.data_ptr(), occ.data_ptr(),
+        int(any_hit), stream,
+    )
+    _launch.raise_on(_lib(), code, "reference kernel")
+    _launch.LAUNCHES["reference"] += 1
+    return occ if any_hit else (attrs, t, u, v, prim >= 0, prim)

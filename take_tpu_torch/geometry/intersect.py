@@ -109,9 +109,7 @@ def intersect_scene(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     N = ro.shape[0]
     n_tri = scene.meta.n_tri
     if n_tri > 0:
-        attrs, tri_t, u, v, tri_hit, _ = brute.closest(
-            g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, ro, rd, tmin, tmax
-        )
+        attrs, tri_t, u, v, tri_hit, _ = brute.closest(g.tri_rows, g.tri_attr, n_tri, ro, rd, tmin, tmax)
     else:
         tri_t = ro.new_full((N,), _BIG)
         tri_hit = torch.zeros(N, dtype=torch.bool, device=ro.device)
@@ -229,7 +227,7 @@ def occluded(scene: Scene, ro, rd, tmin, tmax):
     meta = scene.meta
     occ = torch.zeros(ro.shape[0], dtype=torch.bool, device=ro.device)
     if meta.n_tri > 0:
-        occ = brute.occluded(g.tri_affine_o, g.tri_affine_d, meta.n_tri, ro, rd, tmin, tmax)
+        occ = brute.occluded(g.tri_rows, meta.n_tri, ro, rd, tmin, tmax)
     if meta.n_sph > 0:
         occ = occ | _sph_t(g, ro, rd, tmin, tmax, meta.n_sph)[1].any(dim=1)
     return occ

@@ -31,6 +31,7 @@ import torch
 
 from take_tpu_torch.geometry import _build, _launch
 from take_tpu_torch.geometry.bvh import LEAF_SIZE, WIDTH
+from take_tpu_torch.scene.types import affine_rows
 
 BIG = 3.4e38  # t of a miss
 DW_EPS = 1e-12  # parallel-ray reject on the (u, v, w)-frame direction
@@ -74,17 +75,10 @@ def prep_tables(bvh, geometry):
          bvh.node_child.to(torch.float32)[..., None], bvh.node_count.to(torch.float32)[..., None]],
         dim=2,
     ).reshape(m * WIDTH, 8)
-    tpad = geometry.tri_attr.shape[0]
-    o = geometry.tri_affine_o.reshape(4, 3, tpad)  # [row, uvw, tri]
-    d = geometry.tri_affine_d.reshape(3, 3, tpad)
-    tris = torch.cat(
-        [o.permute(2, 1, 0).reshape(tpad, 12), d.permute(2, 1, 0).reshape(tpad, 9),
-         o.new_zeros((tpad, 3))],
-        dim=1,
-    )
+    tris = affine_rows(geometry.tri_affine_o, geometry.tri_affine_d)
     qnodes = quantize_nodes(*(x.cpu().numpy() for x in (bvh.node_min, bvh.node_max,
                                                         bvh.node_child, bvh.node_count)))[0]
-    return nodes.contiguous(), tris.contiguous(), torch.from_numpy(qnodes).to(nodes.device)
+    return nodes.contiguous(), tris, torch.from_numpy(qnodes).to(nodes.device)
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,11 @@ class GeometryArrays:
     the supercluster's 512 triangles). No kernel of the port reads it, so it
     stays on the host (HOST_TABLES), built only to be checked against the
     JAX package's.
+
+    `tri_rows` is derived from the affine tables once, when the scene is
+    uploaded (`scene_from_numpy`), and is no scene table: the same maps as
+    one row a triangle (`affine_rows`), which the brute-force kernels read.
+    A BVH scene shares the tensor with `bvh.tris`.
     """
 
     tri_v0: Any  # [T, 3]
@@ -92,6 +97,7 @@ class GeometryArrays:
     sph_mat: Any  # [S] int32
     sph_light: Any  # [S] int32
     sph_attr: Any  # [Spad, SATTR_DIM] packed shading attributes
+    tri_rows: Any = dataclasses.field(default=None, compare=False, repr=False)  # [Tpad, 24]
 
 
 @dataclass
@@ -286,6 +292,20 @@ class Hit(NamedTuple):
     light_geom: Any = None  # [N] 1/area for tri lights; -radius for spheres
 
 
+def affine_rows(tri_affine_o, tri_affine_d):
+    """The affine maps of `tri_affine_o` [4, 3 Tpad] and `tri_affine_d`
+    [3, 3 Tpad] (axis-major) as one row a triangle, [Tpad, 24]: o_u[4],
+    o_v[4], o_w[4], d_u[3], d_v[3], d_w[3], 0, 0, 0, contiguous, on the
+    tables' device."""
+    tpad = tri_affine_o.numel() // 12
+    o = tri_affine_o.reshape(4, 3, tpad)  # [row, uvw, tri]
+    d = tri_affine_d.reshape(3, 3, tpad)
+    return torch.cat(
+        [o.permute(2, 1, 0).reshape(tpad, 12), d.permute(2, 1, 0).reshape(tpad, 9), o.new_zeros((tpad, 3))],
+        dim=1,
+    ).contiguous()
+
+
 _TABLE_GROUPS = (
     ("geometry", GeometryArrays),
     ("materials", MaterialArrays),
@@ -302,7 +322,8 @@ def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
     "bvh." tables come all together or not at all. Floating tables become
     float32 and integer tables int32 on `device` (HOST_TABLES on the CPU).
     Keys under "envmap." raise NotImplementedError; unknown keys raise
-    KeyError.
+    KeyError. The derived fields (`compare=False`: `geometry.tri_rows` and
+    the BVH's kernel layouts) are built here, not read.
     """
     tables = dict(tables)
     for key in tables:
@@ -316,7 +337,7 @@ def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
 
     groups = {}
     for prefix, cls in _TABLE_GROUPS:
-        keys = [f"{prefix}.{f.name}" for f in dataclasses.fields(cls)]
+        keys = [f"{prefix}.{f.name}" for f in dataclasses.fields(cls) if f.compare]
         groups[prefix] = cls(**{k.split(".")[1]: upload(tables.pop(k), k) for k in keys})
     bvh = None
     if any(key.startswith("bvh.") for key in tables):
@@ -327,6 +348,8 @@ def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
         bvh = BVHArrays(**{n: upload(a) for n, a in host.items()})
         bvh.depth = wide_depth(np.asarray(host["node_child"]))
         bvh.nodes, bvh.tris, bvh.qnodes = prep_tables(bvh, groups["geometry"])
+    g = groups["geometry"]
+    g.tri_rows = bvh.tris if bvh is not None else affine_rows(g.tri_affine_o, g.tri_affine_d)
     background = upload(tables.pop("background"))
     if tables:
         raise KeyError(f"unknown scene tables: {sorted(tables)}")

@@ -53,7 +53,7 @@ def test_closest_matches_jax_brute(rng_np):
     args = tuple(map(torch.from_numpy, (ro, rd, tmin, tmax)))
     hit = intersect_scene(ps, *args)
     g = ps.geometry
-    prim = brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr, ps.meta.n_tri, *args)[5].numpy()
+    prim = brute.closest_plain(g.tri_rows, g.tri_attr, ps.meta.n_tri, *args)[5].numpy()
     jprim = _jax_prim(js, ro, rd, tmin, tmax)
 
     bad = prim != jprim
@@ -106,7 +106,7 @@ def test_dead_and_padded_lanes_miss(rng_np):
     tmax[::2] = -3.4e38
     _, *rays = _pad_rays(*map(torch.from_numpy, (ro, rd, tmin, tmax)), 256)
     g = ps.geometry
-    attrs, t, u, v, found, prim = brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, ps.meta.n_tri, *rays)
+    attrs, t, u, v, found, prim = brute.closest(g.tri_rows, g.tri_attr, ps.meta.n_tri, *rays)
     dead = rays[3] <= 0
     assert found[~dead].float().mean() > 0.6  # the box is open only at the front
     assert not found[dead].any() and (prim[dead] == -1).all()
@@ -149,8 +149,8 @@ def test_cpu_tensors_run_the_twins(rng_np):
     ro, rd = map(torch.from_numpy, _rays(rng_np, 64))
     tmin, tmax = torch.full((64,), 1e-4), torch.full((64,), float("inf"))
     _launch.reset_launches()
-    brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, ro, rd, tmin, tmax)
-    brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, ro, rd, tmin, tmax)
+    brute.closest(g.tri_rows, g.tri_attr, n_tri, ro, rd, tmin, tmax)
+    brute.occluded(g.tri_rows, n_tri, ro, rd, tmin, tmax)
     assert _launch.LAUNCHES == {**dict.fromkeys(_launch.LAUNCHES, 0), "closest_plain": 1, "anyhit_plain": 1}
 
 
@@ -163,5 +163,5 @@ def test_wrapper_checks_refuse_bad_inputs():
         _launch.check("ro", x.T, torch.float32, (3, 8), x.device)
     with pytest.raises(ValueError, match="n_tri"):
         g = port_scene(jax_parse(CBOX)).geometry
-        brute._check_tables(g.tri_affine_o, g.tri_affine_d, 0, x, x, x[:, 0], x[:, 0])
+        brute._check(g.tri_rows, None, 0, x, x, x[:, 0], x[:, 0])
 

@@ -79,8 +79,8 @@ def cbox_rays():
 def test_closest_kernel_matches_twin(cbox_rays):
     scene, rays = cbox_rays
     g, n_tri = scene.geometry, scene.meta.n_tri
-    k = brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
-    p = brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
+    k = brute.closest(g.tri_rows, g.tri_attr, n_tri, *rays)
+    p = brute.closest_plain(g.tri_rows, g.tri_attr, n_tri, *rays)
     torch.cuda.synchronize()
     agree = k[5] == p[5]
     assert agree.float().mean().item() >= 0.9999
@@ -101,8 +101,8 @@ def test_closest_kernel_matches_twin(cbox_rays):
 def test_anyhit_kernel_matches_twin(cbox_rays):
     scene, rays = cbox_rays
     g, n_tri = scene.geometry, scene.meta.n_tri
-    k = brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
-    p = brute.occluded_plain(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
+    k = brute.occluded(g.tri_rows, n_tri, *rays)
+    p = brute.occluded_plain(g.tri_rows, n_tri, *rays)
     torch.cuda.synchronize()
     bad = (k != p).nonzero()[:, 0]
     assert bad.numel() <= N // 10000
@@ -115,11 +115,11 @@ def test_kernel_launches_are_counted_and_checked(cbox_rays):
     scene, rays = cbox_rays
     g, n_tri = scene.geometry, scene.meta.n_tri
     _launch.reset_launches()
-    brute.closest(g.tri_affine_o, g.tri_affine_d, g.tri_attr, n_tri, *rays)
-    brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, *rays)
+    brute.closest(g.tri_rows, g.tri_attr, n_tri, *rays)
+    brute.occluded(g.tri_rows, n_tri, *rays)
     assert _launch.LAUNCHES == {**dict.fromkeys(_launch.LAUNCHES, 0), "closest": 1, "anyhit": 1}
     with pytest.raises(ValueError, match="ro"):
-        brute.occluded(g.tri_affine_o, g.tri_affine_d, n_tri, rays[0].double(), *rays[1:])
+        brute.occluded(g.tri_rows, n_tri, rays[0].double(), *rays[1:])
 
 
 @pytest.fixture(scope="module")
@@ -339,3 +339,100 @@ def test_packet_odd_sizes_dead_and_padded_lanes(room, room_rays):
     off = tmax < tmin
     assert off.sum() > 300 and (prim[off] == -1).all() and (t[off] == brute.BIG).all()
     assert not occ[off].any() and (prim[~off] >= 0).any()
+
+
+def _assert_bits_equal(got, want):
+    """K1's tuples (or K2's answers) equal in every bit."""
+    if isinstance(got, torch.Tensor):
+        assert torch.equal(got, want)
+        return
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def _brute_pair(g, n_tri, rays):
+    """(K1, K2) and the reference kernel's (closest, any hit) on `rays`."""
+    k = (brute.closest(g.tri_rows, g.tri_attr, n_tri, *rays), brute.occluded(g.tri_rows, n_tri, *rays))
+    ref = (brute.reference(g.tri_rows, g.tri_attr, n_tri, *rays),
+           brute.reference(g.tri_rows, g.tri_attr, n_tri, *rays, any_hit=True))
+    torch.cuda.synchronize()
+    return k, ref
+
+
+@pytest.mark.cuda
+def test_brute_odd_sizes_dead_and_padded_lanes(cbox_rays):
+    """n = 0, 1, 1000 and 2^20 + 7 (ragged against every block): K1 and K2
+    equal the one-ray-per-thread reference kernel bit for bit; dead lanes
+    (tmax = -3.4e38) and padded lanes (ro = rd = 0, tmax = -1) miss, with a
+    zero attribute row; a prefix answers as the whole batch does."""
+    scene, rays = cbox_rays
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    big = (1 << 20) + 7
+    reps = -(-big // N)
+    ro, rd, tmin, tmax = (torch.cat([r] * reps)[:big].clone() for r in rays)
+    tmax[::5] = -3.4e38
+    ro[3::11], rd[3::11], tmax[3::11] = 0.0, 0.0, -1.0
+    (c, o), (c_ref, o_ref) = _brute_pair(g, n_tri, (ro, rd, tmin, tmax))
+    _assert_bits_equal(c, c_ref)
+    _assert_bits_equal(o, o_ref)
+    off = tmax <= 0
+    assert (c[5][off] == -1).all() and (c[1][off] == brute.BIG).all() and not c[0][off].any()
+    assert not o[off].any() and (c[5][~off] >= 0).any() and o[~off].any()
+    for m in (0, 1, 1000):
+        part = [x[:m].contiguous() for x in (ro, rd, tmin, tmax)]
+        (cm, om), (cm_ref, om_ref) = _brute_pair(g, n_tri, part)
+        _assert_bits_equal(cm, cm_ref)
+        _assert_bits_equal(om, om_ref)
+        _assert_bits_equal(cm, tuple(x[:m] for x in c))
+        assert torch.equal(om, o[:m])
+
+
+@pytest.mark.cuda
+def test_brute_tiled_soup(card):
+    """A soup of 3000 triangles, swept in tiles of 256 rows: K1 and K2 equal
+    the reference kernel bit for bit and agree with the plain twins."""
+    rng = np.random.default_rng(7)
+    b = SceneBuilder()
+    m = b.add_material(0)
+    centers = rng.uniform(-10.0, 10.0, (3000, 3))
+    for c in centers:
+        b.add_mesh(c + rng.uniform(-0.8, 0.8, (3, 3)), np.array([[0, 1, 2]]), m)
+    scene = b.build(device="cuda", build_bvh=False)
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    assert scene.bvh is None and n_tri == 3000
+    n = 1 << 14
+    ro = rng.uniform(-12.0, 12.0, (n, 3))
+    d = rng.normal(size=(n, 3))
+    rd = d / np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(rng.random(n) < 0.5, rng.uniform(0.5, 5.0, n), np.inf)
+    tmax[rng.random(n) < 0.1] = -3.4e38
+    rays = [torch.tensor(a, dtype=torch.float32, device="cuda").contiguous() for a in (ro, rd, np.full(n, 1e-4), tmax)]
+    (c, o), (c_ref, o_ref) = _brute_pair(g, n_tri, rays)
+    _assert_bits_equal(c, c_ref)
+    _assert_bits_equal(o, o_ref)
+    p = brute.closest_plain(g.tri_rows, g.tri_attr, n_tri, *rays)
+    _closest_agree(scene, (c[1], c[2], c[3], c[5]), (p[1], p[2], p[3], p[5]), rays)
+    bad = (o != brute.occluded_plain(g.tri_rows, n_tri, *rays)).nonzero()[:, 0]
+    assert bad.numel() <= 2 and near_boundary(torch, g, n_tri, *(r[bad] for r in rays), None).all()
+    assert (c[5] >= 1000).any() and (c[5] >= 0).float().mean() > 0.1  # winners beyond the first tiles
+
+
+@pytest.mark.cuda
+def test_brute_kernels_equal_reference_on_captured_batches(card):
+    """K1 and K2 on the queries a cbox render launches (one pass of a 256x256,
+    1 spp, d4 render: camera, bounce and shadow rays) equal the reference
+    kernel, the first design's loop, bit for bit."""
+    from take_tpu_torch.scene.types import RenderOptions
+
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 256)
+    calls = capture_queries(torch, scene, RenderOptions(spp=1, max_depth=4, seed=0))
+    assert [k for k, _ in calls].count("closest") == 6 and [k for k, _ in calls].count("anyhit") == 5
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    for kind, rays in calls:
+        (c, o), (c_ref, o_ref) = _brute_pair(g, n_tri, rays)
+        if kind == "closest":
+            _assert_bits_equal(c, c_ref)
+            assert (c[5] >= 0).any()
+        else:
+            _assert_bits_equal(o, o_ref)

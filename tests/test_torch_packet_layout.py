@@ -231,7 +231,7 @@ def test_deep_chain_traverses_fully():
     r = [torch.tensor(a, dtype=torch.float32).contiguous() for a in (ro, rd, np.full(n, 1e-4), np.full(n, np.inf))]
     assert _assert_walk_matches_twin(scene.bvh, r, n) == 19
     g = scene.geometry
-    _, t, _, _, _, prim = brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr, scene.meta.n_tri, *r)
+    _, t, _, _, _, prim = brute.closest_plain(g.tri_rows, g.tri_attr, scene.meta.n_tri, *r)
     tw, _, _, pw = packet.packet_plain(scene.bvh, *r)
     assert torch.equal(prim, pw) and torch.equal(t, tw)
     assert set(pw.tolist()) == {0, 19}

@@ -71,7 +71,7 @@ def test_sweep_plain_matches_jax_sweep(n_tri):
     t_j, u_j, v_j, prim_j = _jax_sweep(jax_scene, rays)
     np.testing.assert_array_equal(prim, prim_j)
     g = port.geometry
-    np.testing.assert_array_equal(prim, brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr,
+    np.testing.assert_array_equal(prim, brute.closest_plain(g.tri_rows, g.tri_attr,
                                                             n_tri, *r)[5].numpy())
     hit = prim >= 0
     assert 60 < hit.sum() < hit.size

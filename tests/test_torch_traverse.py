@@ -72,7 +72,7 @@ def _assert_closest_agree(got, want, what):
 
 def _brute_closest(port, r):
     g = port.geometry
-    _, t, u, v, _, prim = brute.closest_plain(g.tri_affine_o, g.tri_affine_d, g.tri_attr, port.meta.n_tri, *r)
+    _, t, u, v, _, prim = brute.closest_plain(g.tri_rows, g.tri_attr, port.meta.n_tri, *r)
     return t, u, v, prim
 
 
@@ -97,7 +97,7 @@ def test_packet_plain_matches_jax_packet(n_tri):
     np.testing.assert_array_equal(occ, np.asarray(prim_j) >= 0)
     g = port.geometry
     np.testing.assert_array_equal(
-        occ, brute.occluded_plain(g.tri_affine_o, g.tri_affine_d, port.meta.n_tri, *r).numpy())
+        occ, brute.occluded_plain(g.tri_rows, port.meta.n_tri, *r).numpy())
     assert not occ[tmax <= 0].any()
 
 

@@ -17,11 +17,14 @@ CBOX = os.path.join(os.path.dirname(__file__), "..", "scenes", "cbox", "cbox.xml
 
 def tables(scene) -> dict:
     """A Scene's tables (take_tpu's, or the port's on the CPU) as numpy,
-    keyed by field path, the form scene_from_numpy takes."""
+    keyed by field path, the form scene_from_numpy takes (derived fields
+    left out)."""
     out = {}
     for group in ("geometry", "materials", "lights", "textures"):
         g = getattr(scene, group)
         for f in dataclasses.fields(g):
+            if not f.compare:  # derived at upload (the port's geometry.tri_rows)
+                continue
             out[f"{group}.{f.name}"] = np.asarray(getattr(g, f.name))
     if scene.bvh is not None:
         for name in tt.BVH_TABLES:

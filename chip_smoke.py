@@ -41,18 +41,30 @@ line and any failure raises, so the exit code is non-zero:
       plain twins; times, and K1/K2 on the captured batches of one pass,
       as in 5;
   textured (scenes/textured/textured.xml at its published 512x512, 64 spp,
-  max_depth 6; an open BVH scene, which the default policy sends through
-  the wavefront-refill loop, on K3):
-  11. main: render_image through the refill loop and K3 alone, then at
-      128x128 against the scan loop (integrator "mis_scan"), and at 64x64
-      through K3 against the plain twins; times, with
-      the refill loop's active_fraction, and K3 on the captured batches of
-      one refill pass.
+  max_depth 6; an open BVH scene with an image texture, on K3):
+  11. main: render_image through the default (scan) loop and K3 alone, then
+      at 128x128 the wavefront-refill loop (integrator "mis_wavefront")
+      against it, and at 64x64 through K3 against the plain twins; times of
+      both loops with their active_fraction, and K3 on the captured batches
+      of one pass;
+  ibl (scenes/ibl/ibl.xml at its published 1024x1024 and max_depth 6, 64 of
+  the published 256 spp; an environment map, Disney metal and composite,
+  on the brute path, K1/K2):
+  12. ibl build: parse, with the envmap's alias-table build timed, and the
+      envmap's bytes on the card;
+  13. main: render_image through K1/K2 alone with the default (scan) loop; at
+      128x128 against the plain twins, and the scan loop against the refill
+      loop (bit-equal without Russian roulette); the closed-form azimuth
+      environment of tests/test_ibl_analytic.py under mis, one_sample_mis
+      and raw; the three integrators against each other on the real map at
+      96x96; times, and K1/K2 on the captured batches of one pass, whose
+      shadow rays toward the map carry tmax = +inf (K2 there also equal to
+      brute.reference bit for bit).
 
 It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
-and bounds in cbox and mis, and their launches in mis) and, last, the
-device JSON line. It fails
+and bounds in cbox, mis and ibl, and their launches in mis and ibl) and,
+last, the device JSON line. It fails
 without a CUDA device, and when run outside a checkout of the repo.
 """
 
@@ -74,12 +86,16 @@ SCENE = ROOT / "scenes" / "cbox" / "cbox.xml"
 ROOM = ROOT / "scenes" / "room" / "room.xml"
 MIS = ROOT / "scenes" / "mis" / "mis.xml"
 TEXTURED = ROOT / "scenes" / "textured" / "textured.xml"
+IBL = ROOT / "scenes" / "ibl" / "ibl.xml"
 RES, SPP, MAX_DEPTH, SEED = 1024, 16, 4, 0
 ROOM_SPP, ROOM_DEPTH = 4, 6  # room at its published 1920x1080; spp cut from 1024
 ROOM_SMALL = (192, 108)  # the four-way render's resolution
 MIS_SPP, MIS_DEPTH, MIS_SMALL = 128, 6, 128  # mis and textured at their published
 TEX_SPP, TEX_DEPTH, TEX_SMALL = 64, 6, 128  # 512x512, spp and depth
 TEX_TWIN = 64  # the resolution of textured's kernel-vs-twin render
+IBL_SPP, IBL_DEPTH, IBL_SMALL = 64, 6, 128  # ibl at its published 1024x1024 and d6; spp cut from 256
+# the closed-form azimuth environment of tests/test_ibl_analytic.py: (spp, rtol) per integrator
+AZIMUTH = {"mis": (512, 0.02), "one_sample_mis": (512, 0.04), "raw": (1024, 0.08)}
 SOURCES = ("brute", "traverse", "cluster", "sweep")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
@@ -687,6 +703,11 @@ def brute_captured(torch, brute, scene, calls, label):
             torch.cuda.synchronize()
             anyhit_gate(torch, f"{label} batch {j} K2", scene, o_k, o_p, rays, dead)
             note = f"{int(o_k.sum())} occluded"
+            n_inf = int(torch.isinf(rays[3]).sum())
+            if n_inf:  # shadow rays toward an environment map: also bit for bit the reference kernel's
+                if not torch.equal(o_k, brute.reference(g.tri_rows, g.tri_attr, n_tri, *rays, any_hit=True)):
+                    raise RuntimeError(f"{label} batch {j}: K2 differs from the reference kernel")
+                note += f", {n_inf} lanes of tmax = +inf (K2 equal to brute.reference)"
         ms = time_call(torch, fn, iters=10)
         b_ms, by, what = brute_bounds(torch, scene, rays)[kind]
         sums[kind][0] += ms
@@ -893,45 +914,36 @@ def mis_cell(torch, dev, out_dir):
 
 def textured_cell(torch, dev, out_dir):
     """textured (an open BVH scene, image texture): the published 512x512,
-    64 spp, d6 render with the default policy, so through the refill loop
-    and K3 alone; a reduced-resolution check of the refill loop against
-    the scan loop; times."""
+    64 spp, d6 render with the default loop (the scan loop) through K3
+    alone; a reduced-resolution check of the refill loop against it; the
+    K3-vs-twins check; times of both loops."""
     from take_tpu_torch.geometry import _launch, packet
-    from take_tpu_torch.integrator import wavefront
     from take_tpu_torch.io.exr import write_exr
-    from take_tpu_torch.render import render_image
+    from take_tpu_torch.render import render_image, use_wavefront_policy
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions
 
-    render = importlib.import_module("take_tpu_torch.render")  # the package's `render` is a function
     scene = parse_scene_file(str(TEXTURED), device=dev)
     cam = scene.meta.camera
     options = RenderOptions(spp=TEX_SPP, max_depth=TEX_DEPTH, seed=SEED)
-    if not render.use_wavefront_policy(scene, options):
-        raise RuntimeError("the default policy should pick the refill loop for textured")
-    passes = []
-
-    def counted_wavefront(*a, **k):
-        passes.append(a[2].shape[0])
-        return wavefront.trace_wavefront(*a, **k)
-
-    with mock.patch.object(render, "trace_wavefront", counted_wavefront):
-        img, launches = render_counted(torch, _launch, render_image, scene, options,
-                                       ("packet_closest", "packet_anyhit"), "textured main path")
-    if not passes or img.shape != (cam.height, cam.width, 3) or not img.mean() > 0:
-        raise RuntimeError(f"textured: {len(passes)} refill passes, image {img.shape}, mean {img.mean()}")
+    refill = dataclasses.replace(options, integrator="mis_wavefront")
+    if use_wavefront_policy(scene, options) or not use_wavefront_policy(scene, refill):
+        raise RuntimeError("the default loop should be the scan loop, and mis_wavefront the refill loop")
+    img, launches = render_counted(torch, _launch, render_image, scene, options,
+                                   ("packet_closest", "packet_anyhit"), "textured main path")
+    if img.shape != (cam.height, cam.width, 3) or not img.mean() > 0:
+        raise RuntimeError(f"textured: image {img.shape}, mean {img.mean()}")
     out = out_dir / f"textured_{cam.width}.exr"
     write_exr(str(out), img)
-    phase("main", f"textured {cam.width}x{cam.height} {TEX_SPP} spp d{TEX_DEPTH}: {len(passes)} passes of the "
-          f"refill loop (wave {wavefront.WAVE_SIZE} lanes), mean {img.mean(axis=(0, 1)).tolist()}, "
-          f"launches {launches}; wrote {out.relative_to(ROOT)}")
+    phase("main", f"textured {cam.width}x{cam.height} {TEX_SPP} spp d{TEX_DEPTH} through the scan loop: mean "
+          f"{img.mean(axis=(0, 1)).tolist()}, launches {launches}; wrote {out.relative_to(ROOT)}")
     small = with_res(scene, TEX_SMALL)
-    img_w = render_image(small, options)
-    img_s = render_image(small, dataclasses.replace(options, integrator="mis_scan"))
+    img_s = render_image(small, options)
+    img_w = render_image(small, refill)
     rel, mw = mean_rel(img_w, img_s)
     phase("main", f"textured {TEX_SMALL}x{TEX_SMALL} refill loop vs scan loop: means {mw.tolist()} vs "
           f"{img_s.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL})")
-    if not np.isfinite(img_s).all() or rel > MEAN_REL:
+    if not np.isfinite(img_w).all() or rel > MEAN_REL:
         raise RuntimeError("the refill loop disagrees with the scan loop")
     tiny = with_res(scene, TEX_TWIN)
     img_k, _ = render_counted(torch, _launch, render_image, tiny, options,
@@ -941,17 +953,161 @@ def textured_cell(torch, dev, out_dir):
         img_p, _ = render_counted(torch, _launch, render_image, tiny, options,
                                   ("packet_closest_plain", "packet_anyhit_plain"), "textured twin render")
     rel, mk = mean_rel(img_k, img_p)
-    phase("main", f"textured {TEX_TWIN}x{TEX_TWIN} K3 vs plain twins (refill loop): means {mk.tolist()} vs "
+    phase("main", f"textured {TEX_TWIN}x{TEX_TWIN} K3 vs plain twins: means {mk.tolist()} vs "
           f"{img_p.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL})")
     if rel > MEAN_REL:
         raise RuntimeError("textured kernel render disagrees with the plain-twin render")
     dt, mrays = timed_render(torch, render_image, scene, options)
-    af = wavefront_active_fraction(torch, scene, options)
-    phase("times", f"textured render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} "
-          f"(refill loop, one pass)")
+    dt_w, mrays_w = timed_render(torch, render_image, scene, refill)
+    phase("times", f"textured render {dt:.4f} s = {mrays:.3f} Mrays/s (scan loop), active_fraction "
+          f"{active_fraction(torch, scene, options, 1):.6f} (1 spp); refill loop {dt_w:.4f} s = {mrays_w:.3f} "
+          f"Mrays/s, active_fraction {wavefront_active_fraction(torch, scene, refill):.6f} (one pass)")
     calls = capture_queries(torch, scene, options)
-    captured_times(torch, packet, scene.bvh, calls, f"textured {cam.width}x{cam.height} d{TEX_DEPTH} (refill loop)")
+    captured_times(torch, packet, scene.bvh, calls, f"textured {cam.width}x{cam.height} d{TEX_DEPTH}")
     return launches
+
+
+def azimuth_env_scene(dev, rho=0.6, w=32, h=16, seed=5):
+    """tests/test_ibl_analytic.py's scene on the port: a diffuse floor of
+    albedo rho under an environment whose texels depend on the azimuth
+    alone, seen from above at 8x8. Its exact radiance is rho * mean(texels)
+    at every pixel. Returns (scene, expected)."""
+    from take_tpu_torch.core.camera import Camera
+    from take_tpu_torch.lights.envmap import build_envmap
+    from take_tpu_torch.scene.build import SceneBuilder
+    from take_tpu_torch.scene.types import MAT_DIFFUSE
+
+    col = np.random.default_rng(seed).uniform(0.2, 2.0, (1, w, 1)).astype(np.float32)
+    b = SceneBuilder()
+    b.camera = Camera(8, 8, (0.0, 3.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, -1.0), 45.0)
+    m = b.add_material(MAT_DIFFUSE, tex_value=(rho,) * 3)
+    s = 50.0
+    verts = np.array([[-s, 0.0, -s], [s, 0.0, -s], [s, 0.0, s], [-s, 0.0, s]], np.float32)
+    b.add_mesh(verts, np.array([[0, 2, 1], [0, 3, 2]]), m)
+    b.envmap = build_envmap(np.broadcast_to(col, (h, w, 3)).copy())
+    return b.build(device=dev), rho * float(col.mean())
+
+
+def cross_integrators(scene):
+    """tests/test_ibl_analytic.py::test_ibl_scene_cross_integrator_agreement
+    on the port: ibl has no golden image (the reference renderer has no
+    environment light), so three estimators that share no weighting code
+    are held to each other on the real map at 96x96, d4, seed 11: mis at 128
+    spp, one-sample MIS at 128 and raw at 256; image means within 3%, and
+    the 95th percentile of 8x8 block means within 10% (of mis + 0.05)."""
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.types import RenderOptions
+
+    small = with_res(scene, 96)
+    imgs = {integ: render_image(small, RenderOptions(spp=spp, max_depth=4, seed=11, integrator=integ))
+            for integ, spp in (("mis", 128), ("one_sample_mis", 128), ("raw", 256))}
+    m = imgs["mis"]
+    b = m.shape[0] // 8
+    mb = m[: 8 * b, : 8 * b].reshape(8, b, 8, b, 3).mean((1, 3)).sum(-1)
+    rows, ok = [], True
+    for other in ("one_sample_mis", "raw"):
+        o = imgs[other]
+        rel = float(np.max(np.abs(o.mean(axis=(0, 1)) / m.mean(axis=(0, 1)) - 1.0)))
+        ob = o[: 8 * b, : 8 * b].reshape(8, b, 8, b, 3).mean((1, 3)).sum(-1)
+        q95 = float(np.quantile(np.abs(ob - mb) / (mb + 0.05), 0.95))
+        rows.append(f"{other} vs mis: means rel {rel:.3e} (limit 0.03), block q95 {q95:.3e} (limit 0.1)")
+        ok = ok and np.isfinite(o).all() and rel <= 0.03 and q95 < 0.1
+    phase("main", "ibl 96x96 d4 across integrators on the real map: " + "; ".join(rows))
+    if not ok:
+        raise RuntimeError("ibl: the integrators disagree on the real map")
+
+
+def ibl_cell(torch, dev, out_dir):
+    """ibl (an environment map, Disney metal and composite, 2 triangles and
+    3 spheres; the brute path): parse with the alias-table build timed, the
+    published 1024x1024, d6 render through K1/K2 alone, at 128x128 the
+    kernels against the twins and the scan loop against the refill loop,
+    the closed-form azimuth environment for three integrators, times, and
+    K1/K2 on the batches of one pass (their shadow rays toward the map have
+    tmax = +inf). Returns (launches, per-pass sums of brute_captured)."""
+    from take_tpu_torch.geometry import _launch, brute
+    from take_tpu_torch.io.exr import write_exr
+    from take_tpu_torch.lights import envmap
+    from take_tpu_torch.render import render_image, use_wavefront_policy
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions
+
+    alias_s = []
+    build_alias_table = envmap.build_alias_table
+
+    def timed_alias(*a):
+        t = time.perf_counter()
+        out = build_alias_table(*a)
+        alias_s.append(time.perf_counter() - t)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(envmap, "build_alias_table", timed_alias):
+        builder = parse_scene_file(str(IBL), build=False)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = builder.build(device=dev)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    env, meta, cam = scene.envmap, scene.meta, scene.meta.camera
+    env_bytes = sum(getattr(env, f.name).nbytes for f in dataclasses.fields(env))
+    phase("ibl build", f"{meta.n_tri} triangles, {meta.n_sph} spheres, materials {meta.used_material_tags}, "
+          f"{meta.n_lights} lights; envmap {tuple(env.data.shape)}: parse {t_parse:.2f} s of which the alias "
+          f"table over {env.alias_prob.numel()} texels {alias_s[0]:.2f} s (a Python loop); upload {t_upload:.2f} s; "
+          f"{env_bytes / 2**20:.2f} MiB of envmap tables on the card")
+    if scene.bvh is not None or not meta.has_envmap or meta.n_lights:
+        raise RuntimeError("ibl should take the brute path with an envmap and no other light")
+
+    options = RenderOptions(spp=IBL_SPP, max_depth=IBL_DEPTH, seed=SEED)
+    if use_wavefront_policy(scene, options):
+        raise RuntimeError("the default loop should be the scan loop")
+    img, launches = render_counted(torch, _launch, render_image, scene, options, ("closest", "anyhit"),
+                                   "ibl main path")
+    if img.shape != (cam.height, cam.width, 3) or not img.mean() > 0:
+        raise RuntimeError(f"ibl image has shape {img.shape} and mean {img.mean()}")
+    out = out_dir / f"ibl_{cam.width}.exr"
+    write_exr(str(out), img)
+    phase("main", f"ibl {cam.width}x{cam.height} {IBL_SPP} spp d{IBL_DEPTH} (reduced: {IBL_SPP} of the published "
+          f"256 spp) through the scan loop: mean {img.mean(axis=(0, 1)).tolist()}, "
+          f"launches {launches}; wrote {out.relative_to(ROOT)}")
+
+    small = with_res(scene, IBL_SMALL)
+    img_k = render_image(small, options)
+    with mock.patch.object(brute, "closest", brute.closest_plain), \
+            mock.patch.object(brute, "occluded", brute.occluded_plain):
+        img_p, _ = render_counted(torch, _launch, render_image, small, options,
+                                  ("closest_plain", "anyhit_plain"), "ibl twin render")
+    rel, mk = mean_rel(img_k, img_p)
+    phase("main", f"ibl {IBL_SMALL}x{IBL_SMALL} kernels vs plain twins: means {mk.tolist()} vs "
+          f"{img_p.mean(axis=(0, 1)).tolist()}, max rel {rel:.3e} (limit {MEAN_REL})")
+    if rel > MEAN_REL:
+        raise RuntimeError("ibl kernel render disagrees with the plain-twin render")
+    img_w = render_image(small, dataclasses.replace(options, integrator="mis_wavefront"))
+    phase("main", f"ibl {IBL_SMALL}x{IBL_SMALL} scan loop vs refill loop (no Russian roulette): bit-equal "
+          f"{np.array_equal(img_k, img_w)}, max abs diff {np.abs(img_k - img_w).max():.3e}")
+    if not np.array_equal(img_k, img_w):
+        raise RuntimeError("the scan and refill loops differ on ibl without Russian roulette")
+
+    az, expected = azimuth_env_scene(dev)
+    rows = []
+    for integrator, (spp, rtol) in AZIMUTH.items():
+        img_a = render_image(az, RenderOptions(spp=spp, max_depth=3, seed=7, integrator=integrator))
+        err = abs(float(img_a.mean()) / expected - 1.0)
+        pix = float(np.abs(img_a.mean(axis=2) / expected - 1.0).max())
+        rows.append(f"{integrator} {spp} spp: mean {img_a.mean():.6f} (rel {err:.2e}, limit {rtol}), "
+                    f"worst pixel rel {pix:.2e} (limit {5 * rtol})")
+        if not np.isfinite(img_a).all() or err > rtol or pix > 5 * rtol:
+            phase("main", "; ".join(rows))
+            raise RuntimeError(f"the azimuth environment's closed form fails under {integrator}")
+    phase("main", f"azimuth environment, closed form {expected:.6f}: " + "; ".join(rows))
+    cross_integrators(scene)
+
+    dt, mrays = timed_render(torch, render_image, scene, options)
+    af = active_fraction(torch, scene, options, 1)
+    phase("times", f"ibl render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} (1 spp)")
+    passes = brute_captured(torch, brute, scene, capture_queries(torch, scene, options),
+                            f"ibl {cam.width}x{cam.height} d{IBL_DEPTH}")
+    return launches, passes
 
 
 def main():
@@ -960,7 +1116,7 @@ def main():
     t_start = time.perf_counter()
     name, smi = device_phase(torch)
     if not (ROOT / "take_tpu_torch" / "__init__.py").is_file() or not all(
-            p.is_file() for p in (SCENE, ROOM, MIS, TEXTURED)):
+            p.is_file() for p in (SCENE, ROOM, MIS, TEXTURED, IBL)):
         raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
     sys.path.insert(0, str(ROOT))
     from take_tpu_torch.geometry import _build, brute, cluster, packet, sweep
@@ -978,8 +1134,12 @@ def main():
         entry.update(launches_mis=launches_mis[entry["name"]], mis_pass_ms=passes_mis[entry["name"]][0],
                      mis_pass_bound_ms=passes_mis[entry["name"]][1])
     launches_tex = textured_cell(torch, dev, out_dir)
+    launches_ibl, passes_ibl = ibl_cell(torch, dev, out_dir)
+    for entry in kernels[:2]:  # K1, K2
+        entry.update(launches_ibl=launches_ibl[entry["name"]], ibl_pass_ms=passes_ibl[entry["name"]][0],
+                     ibl_pass_bound_ms=passes_ibl[entry["name"]][1])
     phase("times", f"launches per default render: cbox {launches}, room {launches_room}, mis {launches_mis}, "
-          f"textured {launches_tex}")
+          f"textured {launches_tex}, ibl {launches_ibl}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

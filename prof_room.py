@@ -77,6 +77,22 @@ sorted by triangle area, both ways. It prints:
   4. renders: cbox and mis through each variant, in the same order;
   5. profile: one pass of mis (4 spp of 512x512) under torch.profiler.
 
+`python3 prof_room.py --policy` times the two bounce loops of integrator
+"mis" against each other in each arm of the JAX package's policy for the
+refill loop: ibl (scenes/ibl/ibl.xml, 1024x1024, POLICY_IBL_SPP spp, d6; an
+envmap scene), textured (512x512, 64 spp, d6; an open BVH scene) and room
+(1920x1080, 4 spp, d8; a BVH scene at d >= 8). It prints:
+
+  1. the card;
+  2. renders: per scene, after a 1-spp warm-up of each loop, the refill
+     loop ("mis_wavefront") and the scan loop ("mis_scan") interleaved
+     refill, scan, scan, refill, twice, and the median of each; the two
+     images must be equal (no scene uses Russian roulette);
+  3. profile: one pass of ibl (2^20 paths, 1 spp of 1024x1024) through
+     each loop under torch.profiler, with the device time of the envmap
+     lookups (envmap_eval/sample/pdf) and of the Disney lobes (disney.py)
+     beside K1 + K2.
+
 Times are Mrays/s by bench.py's metric, rays = W * H * spp * (1 + 2 (d + 1)).
 """
 
@@ -101,6 +117,8 @@ SPP, DEPTH, SEED = 4, 6, 0
 RENDERS = 6  # K3-route renders, for the median and the spread
 TEX_SPP = 64
 WAVES = (1 << 16, 1 << 18, 1 << 20)
+IBL = ROOT / "scenes" / "ibl" / "ibl.xml"
+POLICY_IBL_SPP = 16
 
 
 def smi(query):
@@ -129,10 +147,11 @@ def kind(name):
     return "elementwise/other"
 
 
-def profile_call(torch, fn, label):
+def profile_call(torch, fn, label, ranges=()):
     """Profile one call of `fn`: busy share of the device span, kernel time
-    by kind and by kernel, host launches, and aten::index by input shape.
-    Returns (fn's result, kernel launches)."""
+    by kind and by kernel, host launches, aten::index by input shape, and
+    the device time of the kernels launched inside each record_function
+    range named in `ranges`. Returns (fn's result, kernel launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
@@ -140,6 +159,8 @@ def profile_call(torch, fn, label):
         torch.cuda.synchronize()
     intervals, by_name, launches = [], defaultdict(float), 0
     for e in prof.events():
+        if e.name in ranges:
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             intervals.append((e.time_range.start, e.time_range.end))
             by_name[e.name] += e.time_range.end - e.time_range.start
@@ -170,6 +191,10 @@ def profile_call(torch, fn, label):
     rows.sort(key=lambda a: -a.device_time_total)
     for a in rows[:8]:
         print(f"    aten::index {a.device_time_total / 1e3:9.3f} ms  x{a.count}  {a.input_shapes}")
+    for a in prof.key_averages():
+        if a.key in ranges:
+            print(f"  range {a.key}: x{a.count}, device {a.device_time_total / 1e3:.3f} ms = "
+                  f"{a.device_time_total / total:.4f} of kernel time")
     sys.stdout.flush()
     return result, launches
 
@@ -546,6 +571,45 @@ def brute_ab(torch, render_image, parse_scene_file, RenderOptions):
     profile_call(torch, lambda: render_image(mis, dataclasses.replace(opts["mis"], spp=4)), "mis, one pass")
 
 
+def policy(torch, render_image, parse_scene_file, RenderOptions):
+    from take_tpu_torch.integrator import path_tracer
+    from take_tpu_torch.materials import disney
+
+    for path, spp, depth in ((IBL, POLICY_IBL_SPP, DEPTH), (TEXTURED, TEX_SPP, DEPTH), (ROOM, SPP, 8)):
+        scene = parse_scene_file(str(path), device="cuda")
+        loops = {name: RenderOptions(spp=spp, max_depth=depth, seed=SEED, integrator=name)
+                 for name in ("mis_wavefront", "mis_scan")}
+        images = {name: render_image(scene, dataclasses.replace(o, spp=1)) for name, o in loops.items()}
+        if not np.array_equal(*images.values()):
+            raise RuntimeError(f"{path.name}: the refill and scan loops differ")
+        times = defaultdict(list)
+        for name in ("mis_wavefront", "mis_scan", "mis_scan", "mis_wavefront") * 2:
+            dt, rays = timed(torch, render_image, scene, loops[name], f"{path.stem} {name}")
+            times[name].append(dt)
+        print(f"[policy {path.stem}] " + "; ".join(
+            f"{n}: median {statistics.median(t):.4f} s = {rays / statistics.median(t) / 1e6:.3f} Mrays/s "
+            f"({', '.join(f'{x:.4f}' for x in t)})" for n, t in times.items()), flush=True)
+
+    def ranged(module, name, label):
+        fn = getattr(module, name)
+
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return mock.patch.object(module, name, wrapped)
+
+    scene = parse_scene_file(str(IBL), device="cuda")
+    ranges = ("envmap", "disney")
+    with contextlib.ExitStack() as stack:
+        for name in ("envmap_eval", "envmap_sample", "envmap_pdf"):
+            stack.enter_context(ranged(path_tracer, name, "envmap"))
+        for name in ("sample", "eval", "pdf"):
+            stack.enter_context(ranged(disney, name, "disney"))
+        for name in ("mis_wavefront", "mis_scan"):
+            opts = RenderOptions(spp=1, max_depth=DEPTH, seed=SEED, integrator=name)
+            profile_call(torch, lambda: render_image(scene, opts), f"ibl one pass, {name}", ranges)
+
+
 def main():
     import torch
 
@@ -558,7 +622,8 @@ def main():
 
     print(f"[card] {smi('name,power.limit')}", flush=True)
     args = sys.argv[1:]
-    run = textured if "--textured" in args else k3 if "--k3" in args else brute_ab if "--brute" in args else room
+    run = (textured if "--textured" in args else k3 if "--k3" in args else brute_ab if "--brute" in args
+           else policy if "--policy" in args else room)
     run(torch, render_image, parse_scene_file, RenderOptions)
 
 

@@ -1,4 +1,4 @@
-"""CLI: `python -m take_tpu_torch.cli scene.xml [-max_depth N] [-o out] [-device cuda]`.
+"""CLI: `python -m take_tpu_torch.cli scene.xml [-max_depth N] [-integrator I] [-o out] [-device cuda]`.
 
 Mirrors the reference CLI (main.cpp:8-27 + render.cpp:14-22): positional
 scene path, -max_depth (default 50), writes the film's output filename
@@ -23,6 +23,13 @@ def main(argv=None):
         help="Russian roulette from this bounce (unbiased; -1 = off, the "
         "reference-parity default)",
     )
+    ap.add_argument(
+        "-integrator", default="mis",
+        choices=["mis", "mis_scan", "mis_wavefront", "mis_replay", "one_sample_mis",
+                 "one_sample_mis_power", "raw"],
+        help="mis (= mis_scan) runs the scan loop, mis_wavefront the refill loop; mis_replay comes with the "
+        "gradients slice",
+    )
     ap.add_argument("-device", default="cuda", help="torch device (cuda or cpu)")
     args = ap.parse_args(argv)
 
@@ -41,6 +48,7 @@ def main(argv=None):
     options = RenderOptions(
         spp=args.spp or builder.spp,
         max_depth=args.max_depth,
+        integrator=args.integrator,
         seed=args.seed,
         rr_depth=args.rr_depth,
     )

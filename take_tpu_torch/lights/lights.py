@@ -49,6 +49,18 @@ def select_uniform(scene: Scene, u):
     return torch.clamp(torch.floor(u * n).to(torch.int32), 0, n - 1)
 
 
+def select_power(scene: Scene, u):
+    """Power-proportional pick by inverting the CDF (light.cpp:9-17, with
+    the power table the reference never fills built by scene/build.py)."""
+    idx = torch.searchsorted(scene.lights.power_cdf, u, right=True)
+    return torch.clamp(idx, 0, scene.meta.n_lights - 1).to(torch.int32)
+
+
+def power_pmf(scene: Scene, light_id):
+    """Selection pmf under power sampling (get_light_pmf, light.cpp:20-24)."""
+    return scene.lights.power_pmf[light_id.long()]
+
+
 def gather_light_attrs(scene: Scene, light_id):
     """Packed light rows [N, LATTR_DIM] for the selected ids [N]."""
     return scene.lights.attr[light_id.long()]
@@ -124,6 +136,17 @@ def area_pdf_from_sample(ls: LightSample, light_pos, ref_pos):
     pdf_sph = sphere_cap_pdf(ls.radius, light_pos, ref_pos)
     pdf = torch.where(ls.is_sphere, pdf_sph, ls.inv_area)
     return torch.where(ls.is_area, pdf, 0.0)
+
+
+def area_pdf(scene: Scene, light_id, light_pos, ref_pos):
+    """Per-area pdf of a point on light `light_id` (the integrator variants
+    look the light up by id)."""
+    la = gather_light_attrs(scene, light_id)
+    tag = la[:, LATTR_TAG]
+    is_sphere = (la[:, LATTR_KIND] == SHAPE_SPHERE) & (tag == LIGHT_AREA)
+    pdf_sph = sphere_cap_pdf(la[:, LATTR_RADIUS], light_pos, ref_pos)
+    pdf = torch.where(is_sphere, pdf_sph, la[:, LATTR_INV_AREA])
+    return torch.where(tag == LIGHT_AREA, pdf, 0.0)
 
 
 def area_pdf_from_hit_geom(light_geom, light_pos, ref_pos):

@@ -7,11 +7,11 @@ the reference .inl files: eval returns BRDF * cos(theta_out), pdf == 0 marks
 an invalid sample, and Plastic's "pdf == 1 flags the specular lobe" trick is
 kept (plastic.inl:44-45).
 
-The port has every lobe of the JAX package's bsdf.py: diffuse, mirror,
-plastic, phong, blinn-phong, blinn-phong microfacet and disney-diffuse. The
-JAX package sends the other Disney tags (metal, glass, clearcoat, sheen,
-disneybsdf) to disney.py, which the port does not have yet: a scene that
-uses one raises NotImplementedError at dispatch.
+Here are diffuse, mirror, plastic, phong, blinn-phong, blinn-phong
+microfacet and disney-diffuse; the other Disney tags (metal, glass,
+clearcoat, sheen, disneybsdf) dispatch to disney.py, as the JAX package's
+disney_mode="full" does (its other modes, the reference's stubs, are not
+ported).
 """
 
 from typing import NamedTuple
@@ -20,29 +20,18 @@ import torch
 
 from take_tpu_torch.core.math import C_INVPI, C_INVTWOPI, dot, face_forward, normalize, reflect, to_world
 from take_tpu_torch.core.sampling import sample_cos_power, sample_hemisphere_cos
+from take_tpu_torch.materials import disney
 from take_tpu_torch.materials.textures import eval_reflectance_packed
 from take_tpu_torch.scene import types as ST
 from take_tpu_torch.scene.types import (
     MAT_BLINN_PHONG,
     MAT_BLINN_PHONG_MICROFACET,
-    MAT_DIFFUSE,
     MAT_DISNEY_DIFFUSE,
     MAT_MIRROR,
     MAT_PHONG,
     MAT_PLASTIC,
     Scene,
 )
-
-PORTED_TAGS = (
-    MAT_DIFFUSE,
-    MAT_MIRROR,
-    MAT_PLASTIC,
-    MAT_PHONG,
-    MAT_BLINN_PHONG,
-    MAT_BLINN_PHONG_MICROFACET,
-    MAT_DISNEY_DIFFUSE,
-)
-
 
 class ShadePoint(NamedTuple):
     """Per-ray gathered material state at a hit point."""
@@ -329,24 +318,16 @@ def _disney_diffuse_eval(sp, dir_in, dir_out):
 # ---------------------------------------------------------------------------
 
 
-def _tags(scene: Scene):
-    tags = scene.meta.used_material_tags
-    missing = [ST.MATERIAL_NAMES[t] for t in tags if t not in PORTED_TAGS]
-    if missing:
-        raise NotImplementedError(f"materials not yet ported (Disney lobes): {', '.join(missing)}")
-    return tags
-
-
 def bsdf_sample(scene: Scene, sp: ShadePoint, dir_in, u_lobe, u1, u2, u3=None):
     """Sample an outgoing direction per ray. Returns (dir_out [N,3], pdf [N]).
 
     pdf == 0 encodes an invalid sample (material.cpp:76-82). u_lobe is
-    Plastic's lobe choice; u3 is the Disney lobes' extra uniform, which no
-    ported lobe reads.
+    Plastic's lobe choice and the Disney composite's; u3 is the composite's
+    extra uniform (its glass lobe's reflect/refract choice).
     """
     dir_out = torch.zeros_like(dir_in)
     pdf = torch.zeros(dir_in.shape[:-1], dtype=dir_in.dtype, device=dir_in.device)
-    for tag in _tags(scene):
+    for tag in scene.meta.used_material_tags:
         if tag == MAT_MIRROR:
             d, p = _mirror_sample(sp, dir_in)
         elif tag == MAT_PLASTIC:
@@ -355,6 +336,8 @@ def bsdf_sample(scene: Scene, sp: ShadePoint, dir_in, u_lobe, u1, u2, u3=None):
             d, p = _phong_sample(sp, dir_in, u1, u2)
         elif tag in (MAT_BLINN_PHONG, MAT_BLINN_PHONG_MICROFACET):
             d, p = _blinn_phong_sample(sp, dir_in, u1, u2)
+        elif tag in disney.TAGS:
+            d, p = disney.sample(tag, sp, dir_in, u_lobe, u1, u2, u3)
         else:  # Diffuse, DisneyDiffuse
             d, p = _cosine_sample(sp, dir_in, u1, u2)
         m = sp.tag == tag
@@ -372,7 +355,7 @@ def bsdf_eval(scene: Scene, sp: ShadePoint, dir_in, dir_out, sample_pdf=None):
     if sample_pdf is None:
         sample_pdf = dir_in.new_zeros(dir_in.shape[:-1])
     f = torch.zeros_like(dir_in)
-    for tag in _tags(scene):
+    for tag in scene.meta.used_material_tags:
         if tag == MAT_MIRROR:
             v = _mirror_eval(sp, dir_in, dir_out)
         elif tag == MAT_PLASTIC:
@@ -385,6 +368,8 @@ def bsdf_eval(scene: Scene, sp: ShadePoint, dir_in, dir_out, sample_pdf=None):
             v = _bp_micro_eval(sp, dir_in, dir_out)
         elif tag == MAT_DISNEY_DIFFUSE:
             v = _disney_diffuse_eval(sp, dir_in, dir_out)
+        elif tag in disney.TAGS:
+            v = disney.eval(tag, sp, dir_in, dir_out)
         else:  # Diffuse
             v = _diffuse_eval(sp, dir_in, dir_out)
         f = torch.where((sp.tag == tag)[..., None], v, f)
@@ -394,7 +379,7 @@ def bsdf_eval(scene: Scene, sp: ShadePoint, dir_in, dir_out, sample_pdf=None):
 def bsdf_pdf(scene: Scene, sp: ShadePoint, dir_in, dir_out):
     """Solid-angle pdf of sampling dir_out (get_bsdf_pdf, material.cpp:84-90)."""
     pdf = torch.zeros(dir_in.shape[:-1], dtype=dir_in.dtype, device=dir_in.device)
-    for tag in _tags(scene):
+    for tag in scene.meta.used_material_tags:
         if tag == MAT_MIRROR:
             p = _mirror_pdf(dir_in)
         elif tag == MAT_PLASTIC:
@@ -403,6 +388,8 @@ def bsdf_pdf(scene: Scene, sp: ShadePoint, dir_in, dir_out):
             p = _phong_pdf(sp, dir_in, dir_out)
         elif tag in (MAT_BLINN_PHONG, MAT_BLINN_PHONG_MICROFACET):
             p = _blinn_phong_pdf(sp, dir_in, dir_out)
+        elif tag in disney.TAGS:
+            p = disney.pdf(tag, sp, dir_in, dir_out)
         else:  # Diffuse, DisneyDiffuse
             p = _cosine_pdf(sp, dir_in, dir_out)
         pdf = torch.where(sp.tag == tag, p, pdf)

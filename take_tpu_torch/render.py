@@ -7,6 +7,7 @@ device. The reference's y-flip (img(x, H-1-y), render.cpp:78) happens at
 assembly.
 """
 
+import os
 import time
 
 import torch
@@ -14,31 +15,49 @@ import torch
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.camera import generate_rays
 from take_tpu_torch.integrator.path_tracer import trace_mis
+from take_tpu_torch.integrator.variants import trace_one_sample_mis, trace_one_sample_mis_power, trace_raw
 from take_tpu_torch.integrator.wavefront import trace_wavefront
 from take_tpu_torch.scene.types import RenderOptions, Scene
 
 
 def use_wavefront_policy(scene: Scene, options: RenderOptions) -> bool:
-    """The JAX package's choice of bounce loop: the lane-refill wavefront
-    loop for BVH scenes at depth >= 8, envmap scenes at depth >= 2, and
-    open BVH scenes at depth >= 3; integrator="mis_wavefront" forces it."""
-    if options.integrator == "mis_wavefront":
-        return True
-    return options.integrator == "mis" and (
-        (scene.bvh is not None and options.max_depth >= 8)
-        or (scene.meta.has_envmap and options.max_depth >= 2)
-        or (scene.bvh is not None and scene.meta.has_background and options.max_depth >= 3)
-    )
+    """Whether a pass runs the lane-refill wavefront loop: only when
+    integrator="mis_wavefront" forces it; "mis" runs the scan loop.
+
+    The JAX package picks the refill loop for envmap scenes at depth >= 2,
+    open BVH scenes at depth >= 3 and BVH scenes at depth >= 8. On the H100
+    the scan loop won each of those arms in an interleaved A/B (PERF.md,
+    prof_room.py --policy): at the default pass size (max_rays_per_pass =
+    WAVE_SIZE) no lane is ever refilled, and each refill iteration costs a
+    host sync and a full set of launches whatever its live width."""
+    return options.integrator == "mis_wavefront"
 
 
 def _trace_fn(scene: Scene, options: RenderOptions):
     """The bounce loop of a pass: trace_wavefront, which makes its own camera
-    rays, where the policy picks it; else trace_mis."""
+    rays, where the policy picks it; else the integrator's own loop."""
     if use_wavefront_policy(scene, options):
         return trace_wavefront
     if options.integrator in ("mis", "mis_scan"):
         return trace_mis
-    raise NotImplementedError(f"integrator {options.integrator!r}: later slices")
+    if options.integrator == "mis_replay":
+        raise NotImplementedError(
+            "integrator 'mis_replay': its point is the replay gradient, which comes with the gradients slice")
+    if options.integrator == "one_sample_mis":
+        return trace_one_sample_mis
+    if options.integrator == "one_sample_mis_power":
+        return trace_one_sample_mis_power
+    if options.integrator == "raw":
+        return trace_raw
+    raise ValueError(f"unknown integrator {options.integrator!r}")
+
+
+def checks_enabled() -> bool:
+    """TAKE_TPU_CHECKS=1 makes render_image check every accumulated pass for
+    NaN/Inf on the host and raise with the band (the JAX package's opt-in
+    guard, take_tpu/config.py::checks_enabled). Off by default: the check
+    waits for the card after every pass."""
+    return os.environ.get("TAKE_TPU_CHECKS", "") == "1"
 
 
 def render_pass(scene: Scene, options: RenderOptions, pixel_idx, sample0: int, width: int, n_samples: int):
@@ -83,6 +102,7 @@ def render_image(scene: Scene, options: RenderOptions = RenderOptions(), progres
     rows_per_band = max(1, max_pass // (W * k))
     acc = torch.zeros((n_pixels, 3), dtype=torch.float32, device=device)
 
+    checks = checks_enabled()
     n_passes = 0
     with torch.inference_mode():
         for y0 in range(0, H, rows_per_band):
@@ -95,6 +115,9 @@ def render_image(scene: Scene, options: RenderOptions = RenderOptions(), progres
                 band_acc = band_acc + render_pass(scene, options, pix, s, W, ns)
                 s += ns
                 n_passes += 1
+                if checks and not bool(torch.isfinite(band_acc).all()):
+                    raise FloatingPointError(
+                        f"non-finite radiance in rows [{y0}, {y1}) after sample {s} (TAKE_TPU_CHECKS=1)")
                 if progress is not None:
                     progress(n_passes)
             acc[y0 * W : y1 * W] = band_acc

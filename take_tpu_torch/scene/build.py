@@ -119,7 +119,7 @@ class SceneBuilder:
         self._texture_names = {}
         self.camera: Optional[Camera] = None
         self.background = np.array([0.5, 0.5, 0.5], np.float64)
-        self.envmap = None
+        self.envmap = None  # numpy tables from lights/envmap.py::build_envmap
         self.spp = 4
         self.output_filename = "image.exr"
 
@@ -229,7 +229,7 @@ class SceneBuilder:
 
         Returns (tables, meta): numpy tables (floating or integer; the
         upload casts them to float32/int32) keyed by field path
-        ("geometry.tri_attr", "bvh.node_min", ...) and the static
+        ("geometry.tri_attr", "bvh.node_min", "envmap.data", ...) and the static
         SceneMeta. With build_bvh (or "auto" above BVH_AUTO_MIN
         primitives) the wide BVH is built and the triangle rows are
         reordered into its leaf order before anything is packed.
@@ -419,6 +419,8 @@ class SceneBuilder:
         tables["textures.width"] = np.asarray(w_arr, np.int64)
         tables["textures.height"] = np.asarray(h_arr, np.int64)
         tables["background"] = np.asarray(self.background, np.float64)
+        if self.envmap is not None:  # lights/envmap.py::build_envmap's tables
+            tables.update({f"envmap.{k}": v for k, v in self.envmap.items()})
 
         meta = T.SceneMeta(
             n_tri=n_tri,

@@ -4,11 +4,11 @@ Feature-parity port of parse/parse_scene.cpp (cited per function): <default>
 variable substitution, transform stacks, perspective sensor with fovAxis
 conversion, film/sampler, all 12 bsdf types (+twosided unwrap), point
 emitters, sphere/obj/ply/serialized/rectangle shapes with per-face area
-lights, named texture/material refs, <background>.
+lights, named texture/material refs, <background>, and the JAX package's
+envmap/constant emitter extension (IBL).
 
 Copied from take_tpu/scene/parse_xml.py with imports pointed at this
-package. The JAX package's <emitter type="envmap"> (IBL) extension raises
-NotImplementedError here until the port has an environment light.
+package.
 """
 
 import os
@@ -19,6 +19,7 @@ import numpy as np
 
 from take_tpu_torch.core.camera import Camera
 from take_tpu_torch.io.images import imread3
+from take_tpu_torch.lights.envmap import build_envmap
 from take_tpu_torch.scene import transforms
 from take_tpu_torch.scene import types as T
 from take_tpu_torch.scene.build import SceneBuilder
@@ -380,7 +381,22 @@ class _Parser:
                     intensity = self.intensity(child)
             self.builder.add_point_light(position, intensity)
         elif etype in ("envmap", "constant"):
-            raise NotImplementedError("envmap emitters: slice 4")
+            scale = 1.0
+            data = None
+            to_world = np.eye(4)
+            for child in node:
+                name = child.get("name")
+                if name == "filename":
+                    data = imread3(self.path(child.get("value")))
+                elif name == "scale":
+                    scale = self.f(child.get("value"))
+                elif name in ("toWorld", "to_world"):
+                    to_world = self.transform(child)
+                elif name == "radiance":
+                    data = self.intensity(child)[None, None, :] * np.ones((1, 2, 3))
+            if data is None:
+                raise ValueError("envmap emitter requires a filename")
+            self.builder.envmap = build_envmap(data, to_world, scale)
         else:
             raise ValueError(f"Unknown emitter: {etype}")
 

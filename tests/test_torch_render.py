@@ -93,12 +93,17 @@ def test_query_counts_match_jax():
 
 
 def test_refuses_what_later_slices_bring():
-    """The JAX package's other integrators are not ported: they raise."""
+    """Of the JAX package's integrators only "mis_replay" (whose point is
+    its gradient) waits for a later slice; an unknown name raises
+    ValueError, as in take_tpu; the others render."""
     ps = with_res(port_scene(jax_parse(CBOX)), 4, TCamera)
-    with pytest.raises(NotImplementedError, match="one_sample_mis"):
-        t_render(ps, TOptions(spp=1, max_depth=2, integrator="one_sample_mis"))
-    with pytest.raises(NotImplementedError, match="raw"):
-        t_render(ps, TOptions(spp=1, max_depth=2, integrator="raw"))
+    with pytest.raises(NotImplementedError, match="mis_replay.*gradient"):
+        t_render(ps, TOptions(spp=1, max_depth=2, integrator="mis_replay"))
+    with pytest.raises(ValueError, match="unknown integrator"):
+        t_render(ps, TOptions(spp=1, max_depth=2, integrator="bogus"))
+    for integrator in ("mis", "mis_scan", "mis_wavefront", "one_sample_mis", "one_sample_mis_power", "raw"):
+        img = t_render(ps, TOptions(spp=1, max_depth=2, integrator=integrator))
+        assert img.shape == (4, 4, 3) and np.isfinite(img).all(), integrator
 
 
 def test_cli_renders_on_cpu(tmp_path):
@@ -115,10 +120,27 @@ def test_cli_renders_on_cpu(tmp_path):
     assert img.shape[:2] == (8, 8) and np.isfinite(img).all() and img.mean() > 0
 
 
+def test_cli_renders_ibl_with_raw_on_cpu(tmp_path):
+    """`-integrator` reaches the render: ibl (the environment map, Disney
+    lobes) at 8x8, d6, through raw BSDF sampling."""
+    import os
+
+    shutil.copytree(os.path.join(os.path.dirname(CBOX), "..", "ibl"), tmp_path / "ibl")
+    xml = tmp_path / "ibl" / "ibl.xml"
+    xml.write_text(xml.read_text().replace('value="1024"', 'value="8"'))
+    out = tmp_path / "out.exr"
+    assert cli.main([str(xml), "-max_depth", "6", "-spp", "2", "-integrator", "raw", "-o", str(out),
+                     "-device", "cpu"]) == 0
+    from take_tpu_torch.io.exr import read_exr
+
+    img = read_exr(str(out))
+    assert img.shape[:2] == (8, 8) and np.isfinite(img).all() and img.mean() > 0
+
+
 @pytest.mark.parametrize("name", ["mis", "textured"])
 def test_cli_renders_mis_and_textured_on_cpu(tmp_path, name):
-    """The CLI renders mis (blinn_microfacet plates, the scan loop) and
-    textured (an open BVH scene, the refill loop) at 8x8 and their
+    """The CLI renders mis (blinn_microfacet plates, brute path) and
+    textured (an open BVH scene with an image texture) at 8x8 and their
     published max_depth 6."""
     import os
 

@@ -60,11 +60,25 @@ def test_scene_from_numpy_round_trips():
 
 
 def test_scene_from_numpy_refuses_unknown_and_unported_tables():
+    """Unknown tables raise KeyError, and so does an incomplete envmap (its
+    seven tables come together); a complete one, from a constant
+    environment built by each package, uploads to take_tpu's tables."""
+    from take_tpu.lights.envmap import build_envmap as jax_build_envmap
+    from take_tpu_torch.lights.envmap import build_envmap
+
     packed, meta = SceneBuilder().build_tables()
     with pytest.raises(KeyError):
         scene_from_numpy({**packed, "geometry.bogus": np.zeros(1)}, meta, "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):
         scene_from_numpy({**packed, "envmap.data": np.zeros(1)}, meta, "cpu")
+    const = np.full((1, 2, 3), 0.25)
+    env = {f"envmap.{k}": v for k, v in build_envmap(const).items()}
+    scene = scene_from_numpy({**packed, **env}, meta, "cpu")
+    want = jax_build_envmap(const)
+    for f in dataclasses.fields(want):
+        got = getattr(scene.envmap, f.name)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(want, f.name)), err_msg=f.name)
+        assert str(got.dtype) == ("torch.int32" if f.name == "alias_idx" else "torch.float32"), f.name
 
 
 def test_bvh_sized_scene_raises():
@@ -86,11 +100,21 @@ def test_bvh_sized_scene_raises():
 
 
 def test_envmap_scene_raises(tmp_path):
+    """A constant environment (the envmap emitter's `radiance` form) parses
+    to take_tpu's tables, its envmap included; an envmap with neither a
+    file nor a radiance raises ValueError in both packages."""
     xml = tmp_path / "env.xml"
     xml.write_text('<scene version="0.6.0"><emitter type="constant">'
-                   '<rgb name="radiance" value="1, 1, 1"/></emitter></scene>')
-    with pytest.raises(NotImplementedError, match="envmap"):
-        port_parse(str(xml))
+                   '<rgb name="radiance" value="1, 0.5, 2"/><float name="scale" value="1.5"/></emitter>'
+                   '<shape type="sphere"><float name="radius" value="1"/><bsdf type="diffuse"/></shape></scene>')
+    port, jax_scene = port_parse(str(xml), device="cpu"), jax_parse(str(xml))
+    assert port.meta.has_envmap and port.envmap.data.shape == (1, 2, 3)
+    _assert_tables_equal(port, jax_scene)
+    _assert_meta_equal(port, jax_scene)
+    xml.write_text('<scene version="0.6.0"><emitter type="envmap"/></scene>')
+    for parse in (jax_parse, port_parse):
+        with pytest.raises(ValueError, match="envmap"):
+            parse(str(xml))
 
 
 def test_import_leaves_jax_out():

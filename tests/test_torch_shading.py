@@ -3,7 +3,6 @@ on the same inputs and uniforms."""
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from take_tpu.lights import lights as jl
@@ -11,7 +10,7 @@ from take_tpu.materials import bsdf as jb
 from take_tpu.scene.types import Hit as JHit
 from take_tpu_torch.lights import lights as tl
 from take_tpu_torch.materials import bsdf as tb
-from take_tpu_torch.scene.types import MAT_DIFFUSE, MAT_DISNEY_METAL, MAT_MIRROR, TEX_IMAGE
+from take_tpu_torch.scene.types import MAT_DIFFUSE, MAT_DISNEY_BSDF, MAT_DISNEY_METAL, MAT_MIRROR, TEX_IMAGE
 from take_tpu_torch.scene.types import Hit as THit
 from tests.scenes import cornell_box
 from tests.torch_parity import port_builder
@@ -95,15 +94,31 @@ def test_image_texture_lookup_matches(rng_np):
 
 
 def test_unported_material_raises(rng_np):
-    """The Disney lobes of take_tpu/materials/disney.py are not ported yet:
-    a scene using one raises, naming the tag; mirror no longer does."""
-    b = port_builder(cornell_box, mirror=True)
-    b.add_material(MAT_DISNEY_METAL, roughness=0.3)
-    ps = b.build(device="cpu")
-    assert {MAT_MIRROR, MAT_DISNEY_METAL} <= set(ps.meta.used_material_tags)
-    with pytest.raises(NotImplementedError, match="disneymetal") as err:
-        tb.bsdf_pdf(ps, None, torch.zeros((1, 3)), torch.zeros((1, 3)))
-    assert "mirror" not in str(err.value)
+    """The Disney lobes once raised here; now a scene mixing them with
+    diffuse and mirror dispatches each lane to its own tag's lobe, as
+    take_tpu's bsdf.py does (disney_mode="full"): samples, values and pdfs
+    agree (tests/test_torch_disney.py holds each arm on its own)."""
+    builders = (cornell_box(mirror=True), port_builder(cornell_box, mirror=True))
+    for b in builders:
+        b.add_material(MAT_DISNEY_METAL, roughness=0.3)
+        b.add_material(MAT_DISNEY_BSDF, roughness=0.5, metallic=0.2, clearcoat=0.5)
+    js, ps = builders[0].build(), builders[1].build(device="cpu")
+    assert {MAT_DIFFUSE, MAT_MIRROR, MAT_DISNEY_METAL, MAT_DISNEY_BSDF} <= set(ps.meta.used_material_tags)
+    jsp, tsp = _shade_points(rng_np, js, ps, rng_np.integers(0, ps.meta.n_mat, N))
+    dir_in = _unit(rng_np, N)
+    dir_in *= np.sign(np.sum(dir_in * np.asarray(jsp.geo_n), axis=1, keepdims=True))
+    u = rng_np.random((4, N)).astype(np.float32)
+    jd, jp = jb.bsdf_sample(js, jsp, jnp.asarray(dir_in), *map(jnp.asarray, u))
+    td, tp = tb.bsdf_sample(ps, tsp, torch.from_numpy(dir_in), *map(torch.from_numpy, u))
+    same = (td.numpy() == np.asarray(jd)).all(axis=1)
+    assert same.mean() > 0.9 and (tp.numpy()[tsp.tag.numpy() == MAT_DISNEY_METAL] > 0).any()
+    _close(td, jd, atol=1e-5)
+    _close(tp[same], np.asarray(jp)[same], rtol=1e-4)
+    dir_out = _unit(rng_np, N)
+    args_j = (js, jsp, jnp.asarray(dir_in), jnp.asarray(dir_out))
+    args_t = (ps, tsp, torch.from_numpy(dir_in), torch.from_numpy(dir_out))
+    _close(tb.bsdf_eval(*args_t), jb.bsdf_eval(*args_j), rtol=1e-4)
+    _close(tb.bsdf_pdf(*args_t), jb.bsdf_pdf(*args_j), rtol=1e-4)
 
 
 def test_light_sampling_matches(rng_np):

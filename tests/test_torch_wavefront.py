@@ -105,19 +105,42 @@ def test_wavefront_matches_jax_and_counts(monkeypatch, name, depth, rr_depth):
 
 def test_default_policy_renders_textured_like_jax():
     """textured.xml at 16x16, 2 spp, max_depth 6 with the default integrator:
-    both packages' policies pick the refill loop (an open BVH scene at
-    d >= 3), and the images agree: means within 1e-3 relative; pixels within
-    1e-3 relative (floor 1e-4) but for at most 2 of 256, where an ulp-level
+    take_tpu's policy picks its refill loop (an open BVH scene at d >= 3),
+    the port's its scan loop (test_policy_is_the_scan_loop_unless_forced),
+    and the images agree: means within 1e-3 relative; pixels within 1e-3
+    relative (floor 1e-4) but for at most 2 of 256, where an ulp-level
     difference may send a path another way. (The JAX render traverses with
     its jnp while-loop, the port with the K3 twin.) Measured: every pixel
     within 6.8e-5 relative, means within 1.1e-6."""
+    from take_tpu.render import use_wavefront_policy as j_policy
+
     js = with_res(jax_parse(TEXTURED), 16, JCamera)
     ps = with_res(port_scene(jax_parse(TEXTURED)), 16, TCamera)
     opts = dict(spp=2, max_depth=6, seed=0)
-    assert use_wavefront_policy(ps, TOptions(**opts))
+    assert j_policy(js, JOptions(**opts)) and not use_wavefront_policy(ps, TOptions(**opts))
     img_j = j_render(js, JOptions(**opts))
     img_t = t_render(ps, TOptions(**opts))
     assert img_t.shape == img_j.shape == (16, 16, 3) and np.isfinite(img_t).all()
     np.testing.assert_allclose(img_t.mean(axis=(0, 1)), img_j.mean(axis=(0, 1)), rtol=1e-3)
     err = (np.abs(img_t - img_j) / np.maximum(np.abs(img_j), 1e-4)).max(axis=-1)
     assert (err > 1e-3).sum() <= 2
+
+
+def test_policy_is_the_scan_loop_unless_forced():
+    """The port runs the refill loop only under integrator="mis_wavefront":
+    the scan loop won every arm of take_tpu's policy on the H100 (ibl, an
+    envmap scene at d6; textured, an open BVH scene at d6; room, a BVH
+    scene at d8; PERF.md), where take_tpu picks its refill loop."""
+    from take_tpu.render import use_wavefront_policy as j_policy
+    from take_tpu_torch.lights.envmap import build_envmap
+
+    box = port_builder(cornell_box, 4, 4)
+    box.envmap = build_envmap(np.ones((2, 4, 3), np.float32))
+    envmap_scene = box.build(device="cpu")
+    textured = port_scene(jax_parse(TEXTURED))
+    assert envmap_scene.meta.has_envmap and textured.bvh is not None and textured.meta.has_background
+    for scene, depth in ((envmap_scene, 6), (textured, 6), (textured, 8)):
+        for integrator in ("mis", "mis_scan", "one_sample_mis", "raw"):
+            assert not use_wavefront_policy(scene, TOptions(max_depth=depth, integrator=integrator))
+        assert use_wavefront_policy(scene, TOptions(max_depth=depth, integrator="mis_wavefront"))
+    assert j_policy(jax_parse(TEXTURED), JOptions(max_depth=6))  # where take_tpu differs

@@ -29,6 +29,9 @@ def tables(scene) -> dict:
     if scene.bvh is not None:
         for name in tt.BVH_TABLES:
             out[f"bvh.{name}"] = np.asarray(getattr(scene.bvh, name))
+    if scene.envmap is not None:
+        for f in dataclasses.fields(tt.EnvMap):
+            out[f"envmap.{f.name}"] = np.asarray(getattr(scene.envmap, f.name))
     out["background"] = np.asarray(scene.background)
     return out
 

@@ -7,8 +7,9 @@ line and any failure raises, so the exit code is non-zero:
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
      source, all started together, and prints each kernel's registers,
-     shared memory, stack frame and spills (the kernels of brute.cu and
-     traverse.cu, K1-K3, must have no stack frame and no spills);
+     shared memory, stack frame and spills (the kernels of brute.cu,
+     traverse.cu and cluster.cu, K1-K5, must have no stack frame and no
+     spills);
   cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
   brute-force path, K1/K2):
   3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
@@ -28,13 +29,17 @@ line and any failure raises, so the exit code is non-zero:
      inside the room, shadow rays toward the light, dead lanes, a padded
      tail);
   8. main: render_image through K3 alone, then under traverse.FORCE_SWEEP
-     through K6 (closest hits) and K3 (any hits) alone (launch counters);
-     at 192x108 through K3, K4/K5 (FORCE_CLUSTER), K6 and the plain twins,
-     whose image means must agree;
-  9. times: as in 5, for both room renders and K3/K4/K5/K6 (one bound
+     through K6 (closest hits) and K3 (any hits) alone, and under
+     traverse.FORCE_CLUSTER through K4/K5 alone (launch counters); at
+     192x108 through K3, K4/K5, K6 and the plain twins, whose image means
+     must agree;
+  9. times: as in 5, for the three room renders and K3/K4/K5/K6 (one bound
      for the closest-hit query and one for the any-hit query, whichever
-     kernel answers it), then K3 on the batches it gets in one pass of
-     the 1920x1080 render, captured, each beside its bound;
+     kernel answers it), K4/K5's counted work per live ray on the 2^20
+     rays, then K3 on the batches it gets in one pass of the 1920x1080
+     render, and K4/K5 on those of one pass under FORCE_CLUSTER, captured,
+     each beside its bound (K4/K5's also held to their twin bit for bit,
+     and counted);
   mis (scenes/mis/mis.xml at its published 512x512, 128 spp, max_depth 6;
   blinn_microfacet plates and sphere lights on the brute path, K1/K2):
   10. main: render_image through K1/K2 alone, then at 128x128 against the
@@ -63,8 +68,9 @@ line and any failure raises, so the exit code is non-zero:
 
 It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
-and bounds in cbox, mis and ibl, and their launches in mis and ibl) and,
-last, the device JSON line. It fails
+and bounds in cbox, mis and ibl, and their launches in mis and ibl; K4 and
+K5 their counted work, per-pass times and bounds, launches and the render
+time under FORCE_CLUSTER) and, last, the device JSON line. It fails
 without a CUDA device, and when run outside a checkout of the repo.
 """
 
@@ -149,8 +155,8 @@ def ptxas_report(log):
 
 def build_phase(_build, modules):
     """nvcc for every source at once, then load each library. The kernels of
-    brute.cu (K1, K2) and traverse.cu (K3) must report 0 bytes of stack frame
-    and no spills."""
+    brute.cu (K1, K2), traverse.cu (K3) and cluster.cu (K4, K5) must report
+    0 bytes of stack frame and no spills."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
@@ -160,7 +166,7 @@ def build_phase(_build, modules):
         report = ptxas_report(log)
         phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; "
               + "; ".join(f"{k}: {used}; {frame}" for k, used, frame in report))
-        if name in ("brute", "traverse") and (not report or any(
+        if name in ("brute", "traverse", "cluster") and (not report or any(
                 frame != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for _, _, frame in report)):
             raise RuntimeError(f"{lib.name}'s kernels use local memory: {report}")
     phase("build", f"{len(SOURCES)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
@@ -201,15 +207,32 @@ def bvh_bound(torch, packet, bvh, rays, any_hit, seed=0):
     return ms, by, (work / n).tolist()
 
 
-def capture_queries(torch, scene, options):
+def cluster_counts(torch, cluster, bvh, rays, any_hit, seed=0):
+    """K4's (K5's with any_hit) work per live ray, cluster.cluster_work on
+    WORK_SAMPLE rays of the batch taken as whole blocks of the kernel's
+    cluster.THREADS rays, picked at random: [superclusters entered, clusters
+    entered, triangle rows tested, rows the parent kernel tested (512 for
+    each supercluster the ray's block voted for)]."""
+    n, size = rays[0].shape[0], cluster.THREADS
+    pick = torch.randperm(-(-n // size), generator=torch.Generator().manual_seed(seed))[:WORK_SAMPLE // size]
+    idx = (pick.sort().values[:, None] * size + torch.arange(size)).view(-1)
+    idx = idx[idx < n].to(rays[0].device)
+    sample = [r[idx] for r in rays]
+    work = cluster.cluster_work(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *sample, any_hit=any_hit).double()
+    m = work[sample[3] >= sample[2]].mean(dim=0)
+    return [m[0].item(), m[1].item(), m[2].item(), cluster.SUPT * m[3].item()]
+
+
+def capture_queries(torch, scene, options, cluster_route=False):
     """The inputs of the scene's intersection kernels, copied, from the first
     pass of a render of `scene`: K3's (packet.closest/occluded) for a BVH
-    scene, else K1/K2's (brute.closest/occluded). Returns [("closest" or
-    "anyhit", [ro, rd, tmin, tmax])] in launch order."""
-    from take_tpu_torch.geometry import brute, packet
+    scene, or with cluster_route K4/K5's (cluster.closest/occluded, under
+    traverse.FORCE_CLUSTER), else K1/K2's (brute.closest/occluded). Returns
+    [("closest" or "anyhit", [ro, rd, tmin, tmax])] in launch order."""
+    from take_tpu_torch.geometry import brute, cluster, packet, traverse
 
     render = importlib.import_module("take_tpu_torch.render")  # the package's `render` is a function
-    module = brute if scene.bvh is None else packet
+    module = brute if scene.bvh is None else cluster if cluster_route else packet
     calls, one_pass = [], render.render_pass
 
     class FirstPass(Exception):
@@ -227,6 +250,7 @@ def capture_queries(torch, scene, options):
 
     with mock.patch.object(module, "closest", recording("closest", module.closest)), \
             mock.patch.object(module, "occluded", recording("anyhit", module.occluded)), \
+            mock.patch.object(traverse, "FORCE_CLUSTER", cluster_route), \
             mock.patch.object(render, "render_pass", first_pass):
         try:
             render.render_image(scene, options)
@@ -252,6 +276,53 @@ def captured_times(torch, packet, bvh, calls, label):
     phase("times", f"{label} K3 on the captured batches of one pass: " + "; ".join(rows)
           + "; per pass " + ", ".join(f"{k} {v[0]:.4f} ms (bound {v[1]:.4f} ms)" for k, v in sums.items()))
     return sums
+
+
+def cluster_captured(torch, cluster, packet, scene, calls, label):
+    """K4/K5 on the batches captured from one pass of a render under
+    traverse.FORCE_CLUSTER: each held against cluster_plain by closest_gate /
+    anyhit_gate, its rays that differ from the twin's in any bit counted,
+    timed (CUDA events, 10 calls after 3 warm-ups), bounded by bvh_bound and
+    its work counted by cluster_counts. Returns ({kind: [kernel ms, bound
+    ms]} summed over the pass, {kind: work per live ray, the batches'
+    mean})."""
+    bvh = scene.bvh
+    tables = (bvh.sup_aabb, bvh.cl_aabb, bvh.tris)
+    sums = {"closest": [0.0, 0.0], "anyhit": [0.0, 0.0]}
+    work = {"closest": np.zeros(4), "anyhit": np.zeros(4)}
+    rows = []
+    for j, (kind, rays) in enumerate(calls):
+        dead = rays[3] < rays[2]
+        if kind == "closest":
+            def fn():
+                return cluster.closest(*tables, *rays)
+            k, p = fn(), cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays)
+            torch.cuda.synchronize()
+            closest_gate(torch, f"{label} batch {j} K4", scene, k, p, rays, dead)
+            differ = ~torch.stack([a.view(torch.int32) == b.view(torch.int32) for a, b in zip(k, p)]).all(dim=0)
+            note = f"{int((k[3] >= 0).sum())} hits"
+        else:
+            def fn():
+                return cluster.occluded(*tables, *rays)
+            k, p = fn(), cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays, any_hit=True)
+            torch.cuda.synchronize()
+            anyhit_gate(torch, f"{label} batch {j} K5", scene, k, p, rays, dead)
+            differ = k != p
+            note = f"{int(k.sum())} occluded"
+        ms = time_call(torch, fn, iters=10)
+        b_ms, by, _ = bvh_bound(torch, packet, bvh, rays, kind == "anyhit", seed=j)
+        w = cluster_counts(torch, cluster, bvh, rays, kind == "anyhit", seed=j)
+        sums[kind][0] += ms
+        sums[kind][1] += b_ms
+        work[kind] += np.array(w) / sum(1 for c, _ in calls if c == kind)
+        rows.append(f"{j}:{kind} n={rays[0].shape[0]} live {(~dead).float().mean().item():.3f} {note}, "
+                    f"{int(differ.sum())} rays differ from the twin in any bit; {ms:.4f} ms (bound {b_ms:.4f} ms, "
+                    f"{by}); per live ray {w[0]:.3f} superclusters {w[1]:.3f} clusters {w[2]:.1f} rows "
+                    f"(parent {w[3]:.0f})")
+    phase("times", f"{label} K4/K5 on the captured batches of one pass under FORCE_CLUSTER, each within the "
+          "twin gates: " + "; ".join(rows) + "; per pass "
+          + ", ".join(f"{k} {v[0]:.4f} ms (bound {v[1]:.4f} ms)" for k, v in sums.items()))
+    return sums, {k: v.tolist() for k, v in work.items()}
 
 
 def make_rays(torch, scene, rng, n, lo, hi):
@@ -456,7 +527,8 @@ def room_parity(torch, packet, cluster, sweep, scene, rays, dead):
     for label, key, kernel, twin in (
         ("K3 closest", "packet_closest", lambda: packet.closest(bvh, *rays),
          lambda: packet.packet_plain(bvh, *rays)),
-        ("K4 cluster closest", "cluster_closest", lambda: cluster.closest(bvh.sup_aabb, bvh.tris, *rays),
+        ("K4 cluster closest", "cluster_closest",
+         lambda: cluster.closest(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *rays),
          lambda: cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays)),
         ("K6 sweep closest", "sweep_closest", lambda: sweep.closest(bvh.cl_aabb, bvh.tris, n_tri, *rays),
          lambda: sweep.sweep_plain(bvh.cl_aabb, bvh.tris, n_tri, *rays)),
@@ -468,7 +540,8 @@ def room_parity(torch, packet, cluster, sweep, scene, rays, dead):
     for label, key, kernel, twin in (
         ("K3 any-hit", "packet_anyhit", lambda: packet.occluded(bvh, *rays),
          lambda: packet.packet_plain(bvh, *rays, any_hit=True)),
-        ("K5 cluster any-hit", "cluster_anyhit", lambda: cluster.occluded(bvh.sup_aabb, bvh.tris, *rays),
+        ("K5 cluster any-hit", "cluster_anyhit",
+         lambda: cluster.occluded(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *rays),
          lambda: cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays, any_hit=True)),
         ("K6 sweep any-hit", "sweep_anyhit", lambda: sweep.occluded(bvh.cl_aabb, bvh.tris, n_tri, *rays),
          lambda: sweep.sweep_plain(bvh.cl_aabb, bvh.tris, n_tri, *rays, any_hit=True)),
@@ -722,8 +795,9 @@ def brute_captured(torch, brute, scene, calls, label):
 
 def room_cell(torch, dev, out_dir):
     """room: build, K3/K4/K5/K6 parity, the 1920x1080 renders through K3
-    alone and through K6 (FORCE_SWEEP) with K3's any hit, the 192x108
-    four-way check, times. Returns the kernels' entries."""
+    alone, through K6 (FORCE_SWEEP) with K3's any hit and through K4/K5
+    (FORCE_CLUSTER), the 192x108 four-way check, times, and the captured
+    batches of one pass of K3 and of K4/K5. Returns the kernels' entries."""
     from take_tpu_torch.geometry import _launch, cluster, packet, sweep, traverse
     from take_tpu_torch.geometry import bvh as bvh_build
     from take_tpu_torch.scene.types import scene_from_numpy
@@ -799,13 +873,21 @@ def room_cell(torch, dev, out_dir):
           f"{img_s.mean(axis=(0, 1)).tolist()}, max rel vs the K3 route {rel_s:.3e}, launches {launches_sweep}")
     if rel_s > MEAN_REL:
         raise RuntimeError("room K6 render disagrees with the K3 render")
+    with mock.patch.object(traverse, "FORCE_CLUSTER", True):
+        img_c, launches_cluster = render_counted(torch, _launch, render_image, room, room_opts,
+                                                 ("cluster_closest", "cluster_anyhit"), "room K4/K5 path")
+    rel_c, _ = mean_rel(img_c, img)
+    phase("main", f"room {cam.width}x{cam.height} {ROOM_SPP} spp d{ROOM_DEPTH} under FORCE_CLUSTER: mean "
+          f"{img_c.mean(axis=(0, 1)).tolist()}, max rel vs the K3 route {rel_c:.3e}, launches {launches_cluster}")
+    if rel_c > MEAN_REL:
+        raise RuntimeError("room K4/K5 render disagrees with the K3 render")
 
     small = with_res(room, *ROOM_SMALL)
     img_k, _ = render_counted(torch, _launch, render_image, small, room_opts,
                               ("packet_closest", "packet_anyhit"), "room K3 render")
     with mock.patch.object(traverse, "FORCE_CLUSTER", True):
-        img_c, launches_cluster = render_counted(torch, _launch, render_image, small, room_opts,
-                                                 ("cluster_closest", "cluster_anyhit"), "room K4/K5 render")
+        img_c, _ = render_counted(torch, _launch, render_image, small, room_opts,
+                                  ("cluster_closest", "cluster_anyhit"), "room K4/K5 render")
     with mock.patch.object(traverse, "FORCE_SWEEP", True):
         img_6, _ = render_counted(torch, _launch, render_image, small, room_opts,
                                   ("sweep_closest", "packet_anyhit"), "room K6 render")
@@ -816,7 +898,7 @@ def room_cell(torch, dev, out_dir):
     rel = {k: mean_rel(im, img_p) for k, im in (("K3", img_k), ("K4/K5", img_c), ("K6", img_6))}
     phase("main", f"room {ROOM_SMALL[0]}x{ROOM_SMALL[1]} {ROOM_SPP} spp d{ROOM_DEPTH} means: "
           + ", ".join(f"{k} {v[1].tolist()}" for k, v in rel.items())
-          + f" (K4/K5 launches {launches_cluster}), plain twins {img_p.mean(axis=(0, 1)).tolist()}; max rel vs "
+          + f", plain twins {img_p.mean(axis=(0, 1)).tolist()}; max rel vs "
           f"twins " + ", ".join(f"{k} {v[0]:.3e}" for k, v in rel.items()) + f" (limit {MEAN_REL})")
     if any(v[0] > MEAN_REL for v in rel.values()):
         raise RuntimeError("room kernel renders disagree with the plain-twin render")
@@ -824,6 +906,8 @@ def room_cell(torch, dev, out_dir):
     dt_room, mrays_room = timed_render(torch, render_image, room, room_opts)
     with mock.patch.object(traverse, "FORCE_SWEEP", True):
         dt_sweep, mrays_sweep = timed_render(torch, render_image, room, room_opts)
+    with mock.patch.object(traverse, "FORCE_CLUSTER", True):
+        dt_cluster, mrays_cluster = timed_render(torch, render_image, room, room_opts)
     af_room = active_fraction(torch, room, room_opts, 1)
     sup, tris, cl, n_tri = bvh.sup_aabb, bvh.tris, bvh.cl_aabb, room.meta.n_tri
     ms = {
@@ -831,9 +915,9 @@ def room_cell(torch, dev, out_dir):
         "packet_closest_plain": time_call(torch, lambda: packet.packet_plain(bvh, *rays), 1, 2),
         "packet_anyhit": time_call(torch, lambda: packet.occluded(bvh, *rays), iters=10),
         "packet_anyhit_plain": time_call(torch, lambda: packet.packet_plain(bvh, *rays, any_hit=True), 1, 2),
-        "cluster_closest": time_call(torch, lambda: cluster.closest(sup, tris, *rays), iters=10),
+        "cluster_closest": time_call(torch, lambda: cluster.closest(sup, cl, tris, *rays), iters=10),
         "cluster_closest_plain": time_call(torch, lambda: cluster.cluster_plain(sup, tris, *rays), 1, 2),
-        "cluster_anyhit": time_call(torch, lambda: cluster.occluded(sup, tris, *rays), iters=10),
+        "cluster_anyhit": time_call(torch, lambda: cluster.occluded(sup, cl, tris, *rays), iters=10),
         "cluster_anyhit_plain": time_call(torch, lambda: cluster.cluster_plain(sup, tris, *rays, any_hit=True),
                                           1, 2),
         "sweep_closest": time_call(torch, lambda: sweep.closest(cl, tris, n_tri, *rays), iters=10),
@@ -843,14 +927,23 @@ def room_cell(torch, dev, out_dir):
                                         1, 2),
     }
     bounds = {kind: bvh_bound(torch, packet, bvh, rays, kind == "anyhit") for kind in ("closest", "anyhit")}
+    work = {kind: cluster_counts(torch, cluster, bvh, rays, kind == "anyhit") for kind in ("closest", "anyhit")}
     phase("times", f"room render {dt_room:.4f} s = {mrays_room:.3f} Mrays/s, under FORCE_SWEEP "
-          f"{dt_sweep:.4f} s = {mrays_sweep:.3f} Mrays/s; active_fraction {af_room:.6f} (1 spp); parity "
+          f"{dt_sweep:.4f} s = {mrays_sweep:.3f} Mrays/s, under FORCE_CLUSTER {dt_cluster:.4f} s = "
+          f"{mrays_cluster:.3f} Mrays/s; active_fraction {af_room:.6f} (1 spp); parity "
           f"{t_parity:.1f} s; per call at N={N_RAYS}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
           + "; bound of the query (K3, K4/K5 and K6 alike) " + ", ".join(
               f"{k} {v[0]:.4f} ms ({v[1]}; per ray {v[2][0]:.2f} nodes {v[2][1]:.2f} slabs {v[2][2]:.2f} tris)"
-              for k, v in bounds.items()))
-    calls = capture_queries(torch, room, dataclasses.replace(room_opts, spp=1))
+              for k, v in bounds.items())
+          + "; K4/K5 work per live ray " + ", ".join(
+              f"{k} {v[0]:.3f} superclusters {v[1]:.3f} clusters {v[2]:.1f} triangle rows (the parent kernel "
+              f"{v[3]:.0f})" for k, v in work.items()))
+    one_pass = dataclasses.replace(room_opts, spp=1)
+    calls = capture_queries(torch, room, one_pass)
     captured_times(torch, packet, bvh, calls, f"room {cam.width}x{cam.height} d{ROOM_DEPTH}")
+    passes, pass_work = cluster_captured(torch, cluster, packet, room,
+                                         capture_queries(torch, room, one_pass, cluster_route=True),
+                                         f"room {cam.width}x{cam.height} d{ROOM_DEPTH}")
     launches = {**launches_room, **launches_cluster, **launches_sweep, "sweep_anyhit": 0}
     entries = []
     for key, src, line in (
@@ -861,11 +954,18 @@ def room_cell(torch, dev, out_dir):
         ("sweep_closest", "sweep.cu", "pallas_sweep.py:69"),
         ("sweep_anyhit", "sweep.cu", "pallas_sweep.py:69"),
     ):
-        b_ms, by, _ = bounds["anyhit" if key.endswith("anyhit") else "closest"]
+        kind = "anyhit" if key.endswith("anyhit") else "closest"
+        b_ms, by, _ = bounds[kind]
         entries.append(dict(name=key, route="cuda", source=f"take_tpu_torch/csrc/{src}",
                             replaces=f"take_tpu/geometry/{line}", launches=launches[key],
                             max_abs_err=errs[key], ms=ms[key], plain_ms=ms[f"{key}_plain"],
                             bound_ms=b_ms, bound_by=by, library_ms=None))
+        if key.startswith("cluster"):  # K4/K5: the FORCE_CLUSTER render is their path
+            names = ("superclusters", "clusters", "triangle_rows", "parent_rows")
+            entries[-1].update(work_per_live_ray=dict(zip(names, work[kind])),
+                               room_pass_ms=passes[kind][0], room_pass_bound_ms=passes[kind][1],
+                               room_pass_work_per_live_ray=dict(zip(names, pass_work[kind])),
+                               force_cluster_render_s=dt_cluster)
     return entries, launches_room
 
 

@@ -77,6 +77,33 @@ sorted by triangle area, both ways. It prints:
   4. renders: cbox and mis through each variant, in the same order;
   5. profile: one pass of mis (4 spp of 512x512) under torch.profiler.
 
+`python3 prof_room.py --cluster [--check]` holds K4/K5 (csrc/cluster.cu)
+against the kernel they replaced and against staged variants in the same
+way:
+
+    mkdir -p build/cluster_ab/parent
+    git show <parent>:take_tpu_torch/csrc/cluster.cu > build/cluster_ab/parent/cluster.cu
+
+or a variant of the current source at build/cluster_ab/<name>.cu. Each is
+built with nvcc in parallel beside the package's own source ("new"); a
+source that names `cl_aabb` takes the cluster boxes, any other (the parent)
+only the supercluster boxes. It prints:
+
+  1. the card, and ptxas's report of every variant;
+  2. check: every variant on chip_smoke's 2^20 room rays and on the batches
+     of one pass of room (1920x1080, d6) under traverse.FORCE_CLUSTER, held
+     against cluster_plain by chip_smoke's gates (the package must pass; a
+     staged variant that fails is reported), and the rays whose outputs
+     differ from the parent's and from the twin's in any bit; the counted
+     work per live ray (chip_smoke.cluster_counts) on each set (--check
+     stops here);
+  3. batches: per-pass sums of each variant's time on both sets (CUDA
+     events, 10 calls after 3 warm-ups per batch), the variants in turn and
+     back (old, new, new, old), each batch's time for the parent and the
+     package, and the per-pass bounds (chip_smoke.bvh_bound);
+  4. renders: room (1920x1080, 4 spp, d6) under FORCE_CLUSTER through each
+     variant, in the same order.
+
 `python3 prof_room.py --policy` times the two bounce loops of integrator
 "mis" against each other in each arm of the JAX package's policy for the
 refill loop: ibl (scenes/ibl/ibl.xml, 1024x1024, POLICY_IBL_SPP spp, d6; an
@@ -571,6 +598,184 @@ def brute_ab(torch, render_image, parse_scene_file, RenderOptions):
     profile_call(torch, lambda: render_image(mis, dataclasses.replace(opts["mis"], spp=4)), "mis, one pass")
 
 
+def cluster_variants(torch, cluster, _build):
+    """{name: (closest(bvh, *rays), occluded(bvh, *rays))}: the staged
+    sources under build/cluster_ab and the package's own source ("new"),
+    built with nvcc in parallel and called alike (a source whose entry
+    points take `cl_aabb` is given the cluster boxes), then the package's
+    wrappers ("package")."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    staged = ROOT / "build" / "cluster_ab"
+    staged.mkdir(parents=True, exist_ok=True)
+    srcs = sorted([*staged.glob("*.cu"), *staged.glob("*/cluster.cu")]) + [_build.CSRC / "cluster.cu"]
+
+    def build(src):
+        name = "new" if src.parent == _build.CSRC else src.stem if src.parent == staged else src.parent.name
+        lib_path = staged / f"{name}.so"
+        return name, src, lib_path, subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib_path), str(src)],
+            capture_output=True, text=True)
+
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(build, srcs))
+    out = {}
+    for name, src, lib_path, proc in built:
+        print(f"[ptxas {name}] exit {proc.returncode}\n{proc.stderr}{proc.stdout}", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}")
+        lib = ctypes.CDLL(str(lib_path))
+        two_level = "cl_aabb" in src.read_text()
+        head = [P, I, P, I, P, I] if two_level else [P, I, P, I]
+        lib.tt_cluster_closest.argtypes = head + [P] * 4 + [I] + [P] * 5
+        lib.tt_cluster_occluded.argtypes = head + [P] * 4 + [I, P, P]
+
+        def make(lib, two_level):
+            def tables(bvh):
+                boxes = [bvh.sup_aabb.data_ptr(), bvh.sup_aabb.shape[0]]
+                if two_level:
+                    boxes += [bvh.cl_aabb.data_ptr(), bvh.cl_aabb.shape[0]]
+                return boxes + [bvh.tris.data_ptr(), bvh.tris.shape[0]]
+
+            def closest(bvh, *rays):
+                n = rays[0].shape[0]
+                t, u, v = (torch.empty(n, device="cuda") for _ in range(3))
+                prim = torch.empty(n, dtype=torch.int32, device="cuda")
+                code = lib.tt_cluster_closest(*tables(bvh), *(r.data_ptr() for r in rays), n, t.data_ptr(),
+                                              u.data_ptr(), v.data_ptr(), prim.data_ptr(),
+                                              torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return t, u, v, prim
+
+            def occluded(bvh, *rays):
+                occ = torch.empty(rays[0].shape[0], dtype=torch.bool, device="cuda")
+                code = lib.tt_cluster_occluded(*tables(bvh), *(r.data_ptr() for r in rays), rays[0].shape[0],
+                                               occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return occ
+            return closest, occluded
+
+        out[name] = make(lib, two_level)
+    k4, k5 = cluster.closest, cluster.occluded  # the package's, also while a render patches them
+    out["package"] = (lambda bvh, *rays: k4(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *rays),
+                      lambda bvh, *rays: k5(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *rays))
+    print(f"[ptxas package]\n{_build.build('cluster')[2]}", flush=True)
+    return out
+
+
+def cluster_ab(torch, render_image, parse_scene_file, RenderOptions):
+    """K4/K5: the staged variants against the package's kernel (see the
+    module docstring)."""
+    import chip_smoke as cs
+    from take_tpu_torch.geometry import _build, cluster, packet, traverse
+
+    room = parse_scene_file(str(ROOM), device="cuda")
+    bvh = room.bvh
+    ks = cluster_variants(torch, cluster, _build)
+    names = list(ks)
+    lo = bvh.node_min[0].amin(dim=0).cpu().numpy().astype(np.float64)
+    hi = bvh.node_max[0].amax(dim=0).cpu().numpy().astype(np.float64)
+    pad = 0.02 * (hi - lo)
+    mix, _ = cs.make_rays(torch, room, np.random.default_rng(SEED), 1 << 20, lo + pad, hi - pad)
+    opts = RenderOptions(spp=SPP, max_depth=DEPTH, seed=SEED)
+    sets = {
+        "mix": [("closest", mix), ("anyhit", mix)],
+        "room": cs.capture_queries(torch, room, dataclasses.replace(opts, spp=1), cluster_route=True),
+    }
+    ref = "parent" if "parent" in ks else "package"
+
+    def gate(fn, *args):
+        """chip_smoke's gate; a staged variant that fails it is reported, the package's own source raises."""
+        try:
+            fn(*args)
+            return 0
+        except RuntimeError as err:
+            if any(name in args[1] for name in (" new ", " package ")):
+                raise
+            print(f"[check] gate failed: {err}", flush=True)
+            return 1
+
+    for label, calls in sets.items():
+        diff = defaultdict(lambda: defaultdict(int))
+        work = defaultdict(lambda: np.zeros(4))
+        for j, (kind, rays) in enumerate(calls):
+            dead = rays[3] < rays[2]
+            if kind == "closest":
+                want = cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays)
+                base = ks[ref][0](bvh, *rays)
+                for name, (closest, _) in ks.items():
+                    got = closest(bvh, *rays)
+                    torch.cuda.synchronize()
+                    diff[name]["failed gates"] += gate(cs.closest_gate, torch, f"{label} {j} {name} K4", room, got,
+                                                       want, rays, dead)
+                    same = torch.ones_like(want[3], dtype=torch.bool)
+                    twin = torch.ones_like(want[3], dtype=torch.bool)
+                    for x, y, z in zip(got, base, want):
+                        same &= x.view(torch.int32) == y.view(torch.int32)
+                        twin &= x.view(torch.int32) == z.view(torch.int32)
+                    diff[name]["closest"] += int((~same).sum())
+                    diff[name]["closest vs twin"] += int((~twin).sum())
+            else:
+                want = cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays, any_hit=True)
+                base = ks[ref][1](bvh, *rays)
+                for name, (_, occluded) in ks.items():
+                    got = occluded(bvh, *rays)
+                    torch.cuda.synchronize()
+                    diff[name]["failed gates"] += gate(cs.anyhit_gate, torch, f"{label} {j} {name} K5", room, got,
+                                                       want, rays, dead)
+                    diff[name]["anyhit"] += int((got != base).sum())
+                    diff[name]["anyhit vs twin"] += int((got != want).sum())
+            diff["rays"][kind] += rays[0].shape[0]
+            work[kind] += np.array(cs.cluster_counts(torch, cluster, bvh, rays, kind == "anyhit", seed=j))
+        print(f"[check {label}] the package within the twin gates on {len(calls)} batches; per variant the gates "
+              f"it failed and the rays whose outputs differ from {ref}'s and from the twin's in any bit (K4: t, u, "
+              f"v, prim; K5: occ): " + "; ".join(f"{n} {dict(v)}" for n, v in diff.items()), flush=True)
+        per = {kind: [kind for kind, _ in calls].count(kind) for kind in work}
+        print(f"[work {label}] per live ray, mean over the batches: " + "; ".join(
+            f"{kind} {w[0] / per[kind]:.3f} superclusters, {w[1] / per[kind]:.3f} clusters, "
+            f"{w[2] / per[kind]:.1f} triangle rows (the parent kernel {w[3] / per[kind]:.0f})"
+            for kind, w in work.items()), flush=True)
+    if "--check" in sys.argv[1:]:
+        return
+    order = names + names[::-1]
+    for label, calls in sets.items():
+        sums, per_batch = defaultdict(lambda: defaultdict(list)), defaultdict(lambda: defaultdict(list))
+        for name in order:
+            closest, occluded = ks[name]
+            tot = defaultdict(float)
+            for j, (kind, rays) in enumerate(calls):
+                fn = closest if kind == "closest" else occluded
+                ms = cs.time_call(torch, lambda: fn(bvh, *rays), iters=10)
+                tot[kind] += ms
+                per_batch[name][j].append(ms)
+            for kind, v in tot.items():
+                sums[kind][name].append(v)
+        for kind, by in sums.items():
+            print(f"[batches {label}] {kind} per pass, ms (in order {order}): " + "; ".join(
+                f"{n} {', '.join(f'{x:.4f}' for x in v)} (mean {statistics.mean(v):.4f})" for n, v in by.items()),
+                flush=True)
+        for name in (ref, "package"):
+            print(f"[per batch {label} {name}] " + "; ".join(
+                f"{j}:{calls[j][0]} {statistics.mean(v):.4f}" for j, v in sorted(per_batch[name].items())), flush=True)
+        bounds = defaultdict(float)
+        for j, (kind, rays) in enumerate(calls):
+            bounds[kind] += cs.bvh_bound(torch, packet, bvh, rays, kind == "anyhit", seed=j)[0]
+        print(f"[bounds {label}] per pass: " + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items()), flush=True)
+    with mock.patch.object(traverse, "FORCE_CLUSTER", True):
+        render_image(room, dataclasses.replace(opts, spp=1))  # warm-up
+        times = defaultdict(list)
+        for name in order:
+            closest, occluded = ks[name]
+            with mock.patch.object(cluster, "closest", lambda s, c, t, *r: closest(bvh, *r)), \
+                    mock.patch.object(cluster, "occluded", lambda s, c, t, *r: occluded(bvh, *r)):
+                dt, _ = timed(torch, render_image, room, opts, f"room under FORCE_CLUSTER through {name}")
+            times[name].append(dt)
+    print("[renders room, FORCE_CLUSTER] " + "; ".join(f"{n} {', '.join(f'{x:.4f}' for x in v)} s"
+                                                      for n, v in times.items()), flush=True)
+
+
 def policy(torch, render_image, parse_scene_file, RenderOptions):
     from take_tpu_torch.integrator import path_tracer
     from take_tpu_torch.materials import disney
@@ -623,7 +828,7 @@ def main():
     print(f"[card] {smi('name,power.limit')}", flush=True)
     args = sys.argv[1:]
     run = (textured if "--textured" in args else k3 if "--k3" in args else brute_ab if "--brute" in args
-           else policy if "--policy" in args else room)
+           else cluster_ab if "--cluster" in args else policy if "--policy" in args else room)
     run(torch, render_image, parse_scene_file, RenderOptions)
 
 

@@ -87,6 +87,33 @@ __device__ __forceinline__ bool tri_test(float4 a, float4 b, float4 c,
   return !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
 }
 
+// tri_test rounded as the plain twins round it (geometry/packet.py::
+// affine_test in torch): every product and sum rounded on its own, left to
+// right, none contracted into an FMA, so the answers are the twins' bit for
+// bit. The FMA form differs in the last bits, which on ill-conditioned rays
+// moves u or v across an edge by up to the float32 rounding bound.
+__device__ __forceinline__ float dot3_rn(float a, float b, float c, float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), __fmul_rn(c, z));
+}
+
+__device__ __forceinline__ bool tri_test_rn(float4 a, float4 b, float4 c,
+                                            float4 d, float4 e, float4 f,
+                                            const Ray& r, float& t, float& u,
+                                            float& v) {
+  const float su = __fadd_rn(dot3_rn(a.x, a.y, a.z, r.ox, r.oy, r.oz), a.w);
+  const float sv = __fadd_rn(dot3_rn(b.x, b.y, b.z, r.ox, r.oy, r.oz), b.w);
+  const float sw = __fadd_rn(dot3_rn(c.x, c.y, c.z, r.ox, r.oy, r.oz), c.w);
+  const float du = dot3_rn(d.x, d.y, d.z, r.dx, r.dy, r.dz);
+  const float dv = dot3_rn(d.w, e.x, e.y, r.dx, r.dy, r.dz);
+  const float dw = dot3_rn(e.z, e.w, f.x, r.dx, r.dy, r.dz);
+  const bool parallel = fabsf(dw) < kDwEps;
+  const float inv_dw = __fdiv_rn(1.0f, parallel ? 1.0f : dw);
+  t = __fmul_rn(-sw, inv_dw);
+  u = __fadd_rn(su, __fmul_rn(t, du));
+  v = __fadd_rn(sv, __fmul_rn(t, dv));
+  return !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f;
+}
+
 }  // namespace tt
 
 extern "C" const char* tt_error_string(int code) {

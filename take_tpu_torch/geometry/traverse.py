@@ -38,7 +38,7 @@ def _traverse_backend(scene: Scene, ro, rd, tmin, tmax):
     if FORCE_SWEEP:
         t, u, v, prim = sweep.closest(bvh.cl_aabb, bvh.tris, scene.meta.n_tri, ro, rd, tmin, tmax)
     elif FORCE_CLUSTER:
-        t, u, v, prim = cluster.closest(bvh.sup_aabb, bvh.tris, ro, rd, tmin, tmax)
+        t, u, v, prim = cluster.closest(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, ro, rd, tmin, tmax)
     else:
         t, u, v, prim = packet.closest(bvh, ro, rd, tmin, tmax)
     return t, u, v, prim, prim >= 0
@@ -61,7 +61,7 @@ def bvh_occluded(scene: Scene, ro, rd, tmin, tmax):
 
     bvh, g = scene.bvh, scene.geometry
     if FORCE_CLUSTER:
-        found = cluster.occluded(bvh.sup_aabb, bvh.tris, ro, rd, tmin, tmax)
+        found = cluster.occluded(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, ro, rd, tmin, tmax)
     else:
         found = packet.occluded(bvh, ro, rd, tmin, tmax)
     if scene.meta.n_sph > 0:

@@ -59,6 +59,31 @@ def chain_scene(depth, device):
     return dataclasses.replace(scene, bvh=bvh)
 
 
+def tiled_tables(sup, cl, tris, copies, shift):
+    """`copies` copies of a scene's cluster tables (sup_aabb, cl_aabb,
+    bvh.tris), the k-th moved by k shift: each copy keeps its supercluster
+    rows (NaN padding included), 8 cluster rows each (NaN for padding
+    superclusters) and 512 triangle rows each (zero past the copy's rows),
+    so the tables stay consistent for any number of superclusters. The
+    rows' constant terms move with the boxes."""
+    n_sup, dev = sup.shape[0], sup.device
+    cl_full = torch.full((n_sup * 8, 8), float("nan"), device=dev)
+    cl_full[:cl.shape[0]] = cl
+    rows = torch.zeros((n_sup * 512, 24), device=dev)
+    rows[:tris.shape[0]] = tris
+    out = ([], [], [])
+    for k in range(copies):
+        s = k * torch.tensor(shift, dtype=torch.float32, device=dev)
+        r = rows.clone()
+        for j in range(3):  # o_j' = o_j - row_j . s: the map of the moved triangle
+            r[:, 4 * j + 3] -= (r[:, 4 * j:4 * j + 3] * s).sum(dim=1)
+        move = torch.cat([s, s, torch.zeros(2, device=dev)])
+        out[0].append(sup + move)
+        out[1].append(cl_full + move)
+        out[2].append(r)
+    return tuple(torch.cat(x).contiguous() for x in out)
+
+
 @pytest.fixture
 def cbox_rays():
     if not torch.cuda.is_available():
@@ -177,40 +202,109 @@ def test_packet_kernels_match_twin(room, room_rays):
     assert not o_k[room_rays[3] <= 0].any()
 
 
+def _cluster_equal(tables, rays):
+    """K4 and K5 against cluster_plain on `rays`: equal bit for bit (the
+    kernels round their triangle test as the twin does)."""
+    sup, cl, tris = tables
+    k = cluster.closest(sup, cl, tris, *rays)
+    o_k = cluster.occluded(sup, cl, tris, *rays)
+    p = cluster.cluster_plain(sup, tris, *rays)
+    o_p = cluster.cluster_plain(sup, tris, *rays, any_hit=True)
+    torch.cuda.synchronize()
+    _assert_bits_equal(k, p)
+    assert torch.equal(o_k, o_p)
+    return k, o_k
+
+
 @pytest.mark.cuda
 def test_cluster_kernels_match_twin(room, room_rays):
-    sup, tris = room.bvh.sup_aabb, room.bvh.tris
-    k = cluster.closest(sup, tris, *room_rays)
-    p = cluster.cluster_plain(sup, tris, *room_rays)
-    torch.cuda.synchronize()
-    _closest_agree(room, k, p, room_rays)
-    o_k = cluster.occluded(sup, tris, *room_rays)
-    o_p = cluster.cluster_plain(sup, tris, *room_rays, any_hit=True)
-    bad = (o_k != o_p).nonzero()[:, 0]
-    assert bad.numel() <= N // 10000
-    assert near_boundary(torch, room.geometry, room.meta.n_tri, *(r[bad] for r in room_rays), None).all()
-    assert not o_k[room_rays[3] <= 0].any()
+    """K4 and K5 on room rays: cluster_plain's answers bit for bit, so also
+    within the closest-hit gate; dead lanes miss."""
+    bvh = room.bvh
+    k, o_k = _cluster_equal((bvh.sup_aabb, bvh.cl_aabb, bvh.tris), room_rays)
+    _closest_agree(room, k, cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *room_rays), room_rays)
+    assert not o_k[room_rays[3] <= 0].any() and o_k.any()
+
+
+@pytest.mark.cuda
+def test_cluster_kernels_on_captured_batches(room):
+    """K4 and K5 on the queries a room render launches under FORCE_CLUSTER
+    (one pass of a 192x108, 1 spp, d6 render: camera, bounce and shadow
+    rays): cluster_plain's answers bit for bit."""
+    from take_tpu_torch.scene.types import RenderOptions
+
+    calls = capture_queries(torch, with_res(room, 192, 108), RenderOptions(spp=1, max_depth=6, seed=0),
+                            cluster_route=True)
+    assert [k for k, _ in calls].count("closest") == 8 and [k for k, _ in calls].count("anyhit") == 7
+    bvh = room.bvh
+    for _, rays in calls:
+        _cluster_equal((bvh.sup_aabb, bvh.cl_aabb, bvh.tris), rays)
+
+
+@pytest.mark.cuda
+def test_cluster_streams_tables_of_many_chunks(room, room_rays):
+    """Room's tables twice, the copy moved 20 along x (416 superclusters:
+    the kernels stage 256 a chunk, so the copy streams through the second
+    chunk; no size cap), with half the rays moved into the copy: K4 and K5
+    equal cluster_plain bit for bit, and most moved rays hit the copy's
+    triangles in the second chunk (a few leave room through its openings)."""
+    bvh = room.bvh
+    tables = tiled_tables(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, 2, (20.0, 0.0, 0.0))
+    assert tables[0].shape[0] == 416 and tables[1].shape[0] == 3328
+    ro, rd, tmin, tmax = (r.clone() for r in room_rays)
+    ro[1::2, 0] += 20.0
+    k, _ = _cluster_equal(tables, (ro, rd, tmin, tmax))
+    moved = k[3][1::2]
+    assert (moved >= 256 * 512).sum() > (moved >= 0).sum() // 2
+
+
+@pytest.mark.cuda
+def test_cluster_odd_sizes_dead_and_padded_lanes(room, room_rays):
+    """n = 0, 1 and 1000 (not a multiple of the block): answers equal the
+    whole batch's and the twin's; dead lanes (tmax = -3.4e38) and padded
+    lanes (ro = rd = 0, tmax = -1) miss in both modes."""
+    bvh = room.bvh
+    tables = (bvh.sup_aabb, bvh.cl_aabb, bvh.tris)
+    ro, rd, tmin, tmax = (r[:1000].clone() for r in room_rays)
+    tmax[::3] = -3.4e38
+    ro[1::7], rd[1::7], tmax[1::7] = 0.0, 0.0, -1.0
+    (t, u, v, prim), occ = _cluster_equal(tables, (ro, rd, tmin, tmax))
+    for m in (0, 1):
+        part = [x[:m].contiguous() for x in (ro, rd, tmin, tmax)]
+        k, o = _cluster_equal(tables, part)
+        _assert_bits_equal(k, (t[:m], u[:m], v[:m], prim[:m]))
+        assert torch.equal(o, occ[:m])
+    off = tmax < tmin
+    assert off.sum() > 300 and (prim[off] == -1).all() and (t[off] == brute.BIG).all()
+    assert not occ[off].any() and (prim[~off] >= 0).any()
 
 
 @pytest.mark.cuda
 def test_traversal_launches_are_counted_and_checked(room, room_rays):
     import dataclasses
 
+    bvh = room.bvh
     _launch.reset_launches()
-    packet.closest(room.bvh, *room_rays)
-    packet.occluded(room.bvh, *room_rays)
-    cluster.closest(room.bvh.sup_aabb, room.bvh.tris, *room_rays)
-    cluster.occluded(room.bvh.sup_aabb, room.bvh.tris, *room_rays)
-    sweep.closest(room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri, *room_rays)
-    sweep.occluded(room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri, *room_rays)
+    packet.closest(bvh, *room_rays)
+    packet.occluded(bvh, *room_rays)
+    cluster.closest(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *room_rays)
+    cluster.occluded(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *room_rays)
+    sweep.closest(bvh.cl_aabb, bvh.tris, room.meta.n_tri, *room_rays)
+    sweep.occluded(bvh.cl_aabb, bvh.tris, room.meta.n_tri, *room_rays)
     assert _launch.LAUNCHES == {**dict.fromkeys(_launch.LAUNCHES, 0), "packet_closest": 1,
                                "packet_anyhit": 1, "cluster_closest": 1, "cluster_anyhit": 1,
                                "sweep_closest": 1, "sweep_anyhit": 1}
-    deep = dataclasses.replace(room.bvh, depth=100)  # needs a stack of 100 entries
+    deep = dataclasses.replace(bvh, depth=100)  # needs a stack of 100 entries
+    _launch.reset_launches()
     with pytest.raises(RuntimeError, match="stack"):
         packet.closest(deep, *room_rays)
     with pytest.raises(ValueError, match="bvh.tris"):
-        cluster.closest(room.bvh.sup_aabb, room.bvh.tris[:, :12], *room_rays)
+        cluster.closest(bvh.sup_aabb, bvh.cl_aabb, bvh.tris[:, :12], *room_rays)
+    with pytest.raises(ValueError, match="cl_aabb"):
+        cluster.occluded(bvh.sup_aabb, bvh.cl_aabb[:-8], bvh.tris, *room_rays)
+    with pytest.raises(ValueError, match="cl_aabb"):
+        cluster.closest(bvh.sup_aabb, bvh.cl_aabb[:, :6], bvh.tris, *room_rays)
+    assert not any(_launch.LAUNCHES.values())
 
 
 @pytest.mark.cuda

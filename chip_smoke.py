@@ -7,9 +7,8 @@ line and any failure raises, so the exit code is non-zero:
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
      source, all started together, and prints each kernel's registers,
-     shared memory, stack frame and spills (the kernels of brute.cu,
-     traverse.cu and cluster.cu, K1-K5, must have no stack frame and no
-     spills);
+     shared memory, stack frame and spills (every kernel, K1-K6, must have
+     no stack frame and no spills);
   cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
   brute-force path, K1/K2):
   3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
@@ -27,7 +26,7 @@ line and any failure raises, so the exit code is non-zero:
   7. parity: K3 (closest and any hit), K4, K5 and K6 (closest and any hit)
      against their plain twins on 2^20 room rays (camera, incoherent from
      inside the room, shadow rays toward the light, dead lanes, a padded
-     tail);
+     tail); K6 must equal sweep_plain bit for bit;
   8. main: render_image through K3 alone, then under traverse.FORCE_SWEEP
      through K6 (closest hits) and K3 (any hits) alone, and under
      traverse.FORCE_CLUSTER through K4/K5 alone (launch counters); at
@@ -35,11 +34,13 @@ line and any failure raises, so the exit code is non-zero:
      must agree;
   9. times: as in 5, for the three room renders and K3/K4/K5/K6 (one bound
      for the closest-hit query and one for the any-hit query, whichever
-     kernel answers it), K4/K5's counted work per live ray on the 2^20
-     rays, then K3 on the batches it gets in one pass of the 1920x1080
-     render, and K4/K5 on those of one pass under FORCE_CLUSTER, captured,
-     each beside its bound (K4/K5's also held to their twin bit for bit,
-     and counted);
+     kernel answers it), K4/K5's and K6's counted work per live ray on the
+     2^20 rays, then K3 on the batches it gets in one pass of the 1920x1080
+     render, K4/K5 on those of one pass under FORCE_CLUSTER, and K6 on
+     those of one pass under FORCE_SWEEP (closest hit on its own batches,
+     any hit on the pass's any-hit batches), captured, each beside its
+     bound (K4/K5's and K6's also held to their twin bit for bit, and
+     counted);
   mis (scenes/mis/mis.xml at its published 512x512, 128 spp, max_depth 6;
   blinn_microfacet plates and sphere lights on the brute path, K1/K2):
   10. main: render_image through K1/K2 alone, then at 128x128 against the
@@ -70,8 +71,9 @@ It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
 and bounds in cbox, mis and ibl, and their launches in mis and ibl; K4 and
 K5 their counted work, per-pass times and bounds, launches and the render
-time under FORCE_CLUSTER) and, last, the device JSON line. It fails
-without a CUDA device, and when run outside a checkout of the repo.
+time under FORCE_CLUSTER; K6 the same under FORCE_SWEEP) and, last, the
+device JSON line. It fails without a CUDA device, and when run outside a
+checkout of the repo.
 """
 
 import dataclasses
@@ -154,20 +156,19 @@ def ptxas_report(log):
 
 
 def build_phase(_build, modules):
-    """nvcc for every source at once, then load each library. The kernels of
-    brute.cu (K1, K2), traverse.cu (K3) and cluster.cu (K4, K5) must report
-    0 bytes of stack frame and no spills."""
+    """nvcc for every source at once, then load each library. Every kernel
+    (K1-K6) must report 0 bytes of stack frame and no spills."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
     for module in modules:
         module._lib()
-    for name, (lib, nvcc_s, log) in built.items():
+    for lib, nvcc_s, log in built.values():
         report = ptxas_report(log)
         phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; "
               + "; ".join(f"{k}: {used}; {frame}" for k, used, frame in report))
-        if name in ("brute", "traverse", "cluster") and (not report or any(
-                frame != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for _, _, frame in report)):
+        if not report or any(
+                frame != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for _, _, frame in report):
             raise RuntimeError(f"{lib.name}'s kernels use local memory: {report}")
     phase("build", f"{len(SOURCES)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
 
@@ -207,32 +208,52 @@ def bvh_bound(torch, packet, bvh, rays, any_hit, seed=0):
     return ms, by, (work / n).tolist()
 
 
+def block_sample(torch, rays, size, seed):
+    """WORK_SAMPLE rays of a batch taken as whole blocks of `size` rays,
+    the blocks picked at random, in order."""
+    n = rays[0].shape[0]
+    pick = torch.randperm(-(-n // size), generator=torch.Generator().manual_seed(seed))[:WORK_SAMPLE // size]
+    idx = (pick.sort().values[:, None] * size + torch.arange(size)).view(-1)
+    idx = idx[idx < n].to(rays[0].device)
+    return [r[idx] for r in rays]
+
+
 def cluster_counts(torch, cluster, bvh, rays, any_hit, seed=0):
     """K4's (K5's with any_hit) work per live ray, cluster.cluster_work on
     WORK_SAMPLE rays of the batch taken as whole blocks of the kernel's
     cluster.THREADS rays, picked at random: [superclusters entered, clusters
     entered, triangle rows tested, rows the parent kernel tested (512 for
     each supercluster the ray's block voted for)]."""
-    n, size = rays[0].shape[0], cluster.THREADS
-    pick = torch.randperm(-(-n // size), generator=torch.Generator().manual_seed(seed))[:WORK_SAMPLE // size]
-    idx = (pick.sort().values[:, None] * size + torch.arange(size)).view(-1)
-    idx = idx[idx < n].to(rays[0].device)
-    sample = [r[idx] for r in rays]
+    sample = block_sample(torch, rays, cluster.THREADS, seed)
     work = cluster.cluster_work(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, *sample, any_hit=any_hit).double()
     m = work[sample[3] >= sample[2]].mean(dim=0)
     return [m[0].item(), m[1].item(), m[2].item(), cluster.SUPT * m[3].item()]
 
 
-def capture_queries(torch, scene, options, cluster_route=False):
+def sweep_counts(torch, sweep, scene, rays, any_hit, seed=0):
+    """K6's work per live ray, sweep.sweep_work on WORK_SAMPLE rays of the
+    batch taken as whole blocks of the kernel's sweep.THREADS rays, picked
+    at random: [boxes walked, clusters entered, triangle rows tested, rows
+    the parent kernel's block-wide cull left each live ray]."""
+    sample = block_sample(torch, rays, sweep.THREADS, seed)
+    bvh = scene.bvh
+    work = sweep.sweep_work(bvh.cl_aabb, bvh.tris, scene.meta.n_tri, *sample, any_hit=any_hit).double()
+    return work[sample[3] >= sample[2]].mean(dim=0).tolist()
+
+
+def capture_queries(torch, scene, options, cluster_route=False, sweep_route=False):
     """The inputs of the scene's intersection kernels, copied, from the first
     pass of a render of `scene`: K3's (packet.closest/occluded) for a BVH
     scene, or with cluster_route K4/K5's (cluster.closest/occluded, under
-    traverse.FORCE_CLUSTER), else K1/K2's (brute.closest/occluded). Returns
-    [("closest" or "anyhit", [ro, rd, tmin, tmax])] in launch order."""
-    from take_tpu_torch.geometry import brute, cluster, packet, traverse
+    traverse.FORCE_CLUSTER), or with sweep_route K6's closest hits
+    (sweep.closest, under traverse.FORCE_SWEEP) and K3's any hits, else
+    K1/K2's (brute.closest/occluded). Returns [("closest" or "anyhit",
+    [ro, rd, tmin, tmax])] in launch order."""
+    from take_tpu_torch.geometry import brute, cluster, packet, sweep, traverse
 
     render = importlib.import_module("take_tpu_torch.render")  # the package's `render` is a function
     module = brute if scene.bvh is None else cluster if cluster_route else packet
+    closest_module = sweep if sweep_route else module
     calls, one_pass = [], render.render_pass
 
     class FirstPass(Exception):
@@ -248,9 +269,10 @@ def capture_queries(torch, scene, options, cluster_route=False):
         one_pass(*a, **k)
         raise FirstPass
 
-    with mock.patch.object(module, "closest", recording("closest", module.closest)), \
+    with mock.patch.object(closest_module, "closest", recording("closest", closest_module.closest)), \
             mock.patch.object(module, "occluded", recording("anyhit", module.occluded)), \
             mock.patch.object(traverse, "FORCE_CLUSTER", cluster_route), \
+            mock.patch.object(traverse, "FORCE_SWEEP", sweep_route), \
             mock.patch.object(render, "render_pass", first_pass):
         try:
             render.render_image(scene, options)
@@ -299,7 +321,7 @@ def cluster_captured(torch, cluster, packet, scene, calls, label):
             k, p = fn(), cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays)
             torch.cuda.synchronize()
             closest_gate(torch, f"{label} batch {j} K4", scene, k, p, rays, dead)
-            differ = ~torch.stack([a.view(torch.int32) == b.view(torch.int32) for a, b in zip(k, p)]).all(dim=0)
+            differ = bits_differ(torch, k, p)
             note = f"{int((k[3] >= 0).sum())} hits"
         else:
             def fn():
@@ -307,7 +329,7 @@ def cluster_captured(torch, cluster, packet, scene, calls, label):
             k, p = fn(), cluster.cluster_plain(bvh.sup_aabb, bvh.tris, *rays, any_hit=True)
             torch.cuda.synchronize()
             anyhit_gate(torch, f"{label} batch {j} K5", scene, k, p, rays, dead)
-            differ = k != p
+            differ = bits_differ(torch, k, p)
             note = f"{int(k.sum())} occluded"
         ms = time_call(torch, fn, iters=10)
         b_ms, by, _ = bvh_bound(torch, packet, bvh, rays, kind == "anyhit", seed=j)
@@ -316,11 +338,48 @@ def cluster_captured(torch, cluster, packet, scene, calls, label):
         sums[kind][1] += b_ms
         work[kind] += np.array(w) / sum(1 for c, _ in calls if c == kind)
         rows.append(f"{j}:{kind} n={rays[0].shape[0]} live {(~dead).float().mean().item():.3f} {note}, "
-                    f"{int(differ.sum())} rays differ from the twin in any bit; {ms:.4f} ms (bound {b_ms:.4f} ms, "
+                    f"{differ} rays differ from the twin in any bit; {ms:.4f} ms (bound {b_ms:.4f} ms, "
                     f"{by}); per live ray {w[0]:.3f} superclusters {w[1]:.3f} clusters {w[2]:.1f} rows "
                     f"(parent {w[3]:.0f})")
     phase("times", f"{label} K4/K5 on the captured batches of one pass under FORCE_CLUSTER, each within the "
           "twin gates: " + "; ".join(rows) + "; per pass "
+          + ", ".join(f"{k} {v[0]:.4f} ms (bound {v[1]:.4f} ms)" for k, v in sums.items()))
+    return sums, {k: v.tolist() for k, v in work.items()}
+
+
+def sweep_captured(torch, sweep, packet, scene, calls, label):
+    """K6 on the batches captured from one pass of a render under
+    traverse.FORCE_SWEEP: closest hit on the sweep route's own batches, any
+    hit on the pass's any-hit batches (K3's there), each equal to
+    sweep_plain bit for bit, timed (CUDA events, 10 calls after 3 warm-ups),
+    bounded by bvh_bound and its work counted by sweep_counts. Returns
+    ({kind: [kernel ms, bound ms]} summed over the pass, {kind: work per
+    live ray, the batches' mean})."""
+    bvh, n_tri = scene.bvh, scene.meta.n_tri
+    tables = (bvh.cl_aabb, bvh.tris, n_tri)
+    sums = {"closest": [0.0, 0.0], "anyhit": [0.0, 0.0]}
+    work = {"closest": np.zeros(4), "anyhit": np.zeros(4)}
+    rows = []
+    for j, (kind, rays) in enumerate(calls):
+        any_hit = kind == "anyhit"
+        fn = sweep.occluded if any_hit else sweep.closest
+        k, p = fn(*tables, *rays), sweep.sweep_plain(*tables, *rays, any_hit=any_hit)
+        torch.cuda.synchronize()
+        differ = bits_differ(torch, k, p)
+        if differ:
+            raise RuntimeError(f"{label} batch {j}: K6 {kind} differs from sweep_plain on {differ} rays")
+        note = f"{int(k.sum())} occluded" if any_hit else f"{int((k[3] >= 0).sum())} hits"
+        ms = time_call(torch, lambda: fn(*tables, *rays), iters=10)
+        b_ms, by, _ = bvh_bound(torch, packet, bvh, rays, any_hit, seed=j)
+        w = sweep_counts(torch, sweep, scene, rays, any_hit, seed=j)
+        sums[kind][0] += ms
+        sums[kind][1] += b_ms
+        work[kind] += np.array(w) / sum(1 for c, _ in calls if c == kind)
+        rows.append(f"{j}:{kind} n={rays[0].shape[0]} live {(rays[3] >= rays[2]).float().mean().item():.3f} "
+                    f"{note}, equal to the twin bit for bit; {ms:.4f} ms (bound {b_ms:.4f} ms, {by}); per live "
+                    f"ray {w[0]:.1f} boxes {w[1]:.3f} clusters {w[2]:.1f} rows (parent {w[3]:.0f})")
+    phase("times", f"{label} K6 on the captured batches of one pass under FORCE_SWEEP (any hit on the pass's "
+          "any-hit batches): " + "; ".join(rows) + "; per pass "
           + ", ".join(f"{k} {v[0]:.4f} ms (bound {v[1]:.4f} ms)" for k, v in sums.items()))
     return sums, {k: v.tolist() for k, v in work.items()}
 
@@ -420,6 +479,15 @@ def fp32_bounds(torch, g, prim, ro, rd):
     eu = 8 * eps * (S[0] + t * D[0]) + d[0].abs() * et + 4 * eps * (s[0].abs() + t * d[0].abs())
     ev = 8 * eps * (S[1] + t * D[1]) + d[1].abs() * et + 4 * eps * (s[1].abs() + t * d[1].abs())
     return 2 * et, 2 * eu, 2 * ev
+
+
+def bits_differ(torch, k, p):
+    """How many rays have answers that differ in any bit: (t, u, v, prim) or
+    occlusion masks."""
+    if isinstance(k, torch.Tensor):
+        return int((k != p).sum())
+    same = torch.stack([a.view(torch.int32) == b.view(torch.int32) for a, b in zip(k, p)]).all(dim=0)
+    return int((~same).sum())
 
 
 def closest_gate(torch, label, scene, k, p, rays, dead):
@@ -536,6 +604,10 @@ def room_parity(torch, packet, cluster, sweep, scene, rays, dead):
         k, p = kernel(), twin()
         torch.cuda.synchronize()
         err[key], _, line = closest_gate(torch, label, scene, k, p, rays, dead)
+        if key == "sweep_closest":  # K6 equals its twin bit for bit
+            line += f"; {bits_differ(torch, k, p)} rays differ from the twin in any bit"
+            if bits_differ(torch, k, p):
+                raise RuntimeError(f"{label} differs from sweep_plain: {line}")
         phase("parity", line)
     for label, key, kernel, twin in (
         ("K3 any-hit", "packet_anyhit", lambda: packet.occluded(bvh, *rays),
@@ -549,6 +621,8 @@ def room_parity(torch, packet, cluster, sweep, scene, rays, dead):
         o_k, o_p = kernel(), twin()
         torch.cuda.synchronize()
         err[key], line = anyhit_gate(torch, label, scene, o_k, o_p, rays, dead)
+        if key == "sweep_anyhit" and bits_differ(torch, o_k, o_p):
+            raise RuntimeError(f"{label} differs from sweep_plain on {bits_differ(torch, o_k, o_p)} rays")
         phase("parity", line)
     return err
 
@@ -839,8 +913,7 @@ def room_cell(torch, dev, out_dir):
           f"{t_upload:.2f} s; {bvh.node_child.shape[0]} nodes ({bvh.qnodes.nbytes / 2**20:.3f} MiB quantised, "
           f"{bvh.nodes.nbytes / 2**20:.3f} MiB exact), wide depth {bvh.depth}, stack of {need} (base, mask) "
           f"entries of the kernel's {have} (the twin's per-node stack: {packet.stack_bound(bvh.depth)}); "
-          f"{bvh.cl_aabb.shape[0]} clusters (the sweep kernel holds "
-          f"{sweep._lib().tt_sweep_max_clusters()}), {bvh.sup_aabb.shape[0]} superclusters; on the card "
+          f"{bvh.cl_aabb.shape[0]} clusters, {bvh.sup_aabb.shape[0]} superclusters; on the card "
           f"{table_bytes / 2**20:.2f} MiB of scene tables + {bvh_bytes / 2**20:.2f} MiB of BVH tables; "
           f"kept on the host {host_bytes / 2**20:.2f} MiB (geometry.tri_sweep, which K4/K5 no longer read: "
           f"{(table_bytes + host_bytes) / 2**20:.2f} MiB of scene tables on the card when they did)")
@@ -928,6 +1001,7 @@ def room_cell(torch, dev, out_dir):
     }
     bounds = {kind: bvh_bound(torch, packet, bvh, rays, kind == "anyhit") for kind in ("closest", "anyhit")}
     work = {kind: cluster_counts(torch, cluster, bvh, rays, kind == "anyhit") for kind in ("closest", "anyhit")}
+    work6 = {kind: sweep_counts(torch, sweep, room, rays, kind == "anyhit") for kind in ("closest", "anyhit")}
     phase("times", f"room render {dt_room:.4f} s = {mrays_room:.3f} Mrays/s, under FORCE_SWEEP "
           f"{dt_sweep:.4f} s = {mrays_sweep:.3f} Mrays/s, under FORCE_CLUSTER {dt_cluster:.4f} s = "
           f"{mrays_cluster:.3f} Mrays/s; active_fraction {af_room:.6f} (1 spp); parity "
@@ -937,12 +1011,18 @@ def room_cell(torch, dev, out_dir):
               for k, v in bounds.items())
           + "; K4/K5 work per live ray " + ", ".join(
               f"{k} {v[0]:.3f} superclusters {v[1]:.3f} clusters {v[2]:.1f} triangle rows (the parent kernel "
-              f"{v[3]:.0f})" for k, v in work.items()))
+              f"{v[3]:.0f})" for k, v in work.items())
+          + "; K6 work per live ray " + ", ".join(
+              f"{k} {v[0]:.1f} boxes walked {v[1]:.3f} clusters entered {v[2]:.1f} triangle rows (the parent "
+              f"kernel's block-wide cull {v[3]:.0f})" for k, v in work6.items()))
     one_pass = dataclasses.replace(room_opts, spp=1)
     calls = capture_queries(torch, room, one_pass)
     captured_times(torch, packet, bvh, calls, f"room {cam.width}x{cam.height} d{ROOM_DEPTH}")
     passes, pass_work = cluster_captured(torch, cluster, packet, room,
                                          capture_queries(torch, room, one_pass, cluster_route=True),
+                                         f"room {cam.width}x{cam.height} d{ROOM_DEPTH}")
+    passes6, pass_work6 = sweep_captured(torch, sweep, packet, room,
+                                         capture_queries(torch, room, one_pass, sweep_route=True),
                                          f"room {cam.width}x{cam.height} d{ROOM_DEPTH}")
     launches = {**launches_room, **launches_cluster, **launches_sweep, "sweep_anyhit": 0}
     entries = []
@@ -966,6 +1046,12 @@ def room_cell(torch, dev, out_dir):
                                room_pass_ms=passes[kind][0], room_pass_bound_ms=passes[kind][1],
                                room_pass_work_per_live_ray=dict(zip(names, pass_work[kind])),
                                force_cluster_render_s=dt_cluster)
+        if key.startswith("sweep"):  # K6: the FORCE_SWEEP render is its closest hits' path
+            names = ("boxes_walked", "clusters", "triangle_rows", "parent_rows")
+            entries[-1].update(work_per_live_ray=dict(zip(names, work6[kind])),
+                               room_pass_ms=passes6[kind][0], room_pass_bound_ms=passes6[kind][1],
+                               room_pass_work_per_live_ray=dict(zip(names, pass_work6[kind])),
+                               force_sweep_render_s=dt_sweep)
     return entries, launches_room
 
 

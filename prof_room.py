@@ -104,6 +104,34 @@ only the supercluster boxes. It prints:
   4. renders: room (1920x1080, 4 spp, d6) under FORCE_CLUSTER through each
      variant, in the same order.
 
+`python3 prof_room.py --sweep [--check]` holds K6 (csrc/sweep.cu) against the
+kernel it replaced and against variants in the same way:
+
+    mkdir -p build/sweep_ab/parent
+    git show <parent>:take_tpu_torch/csrc/sweep.cu > build/sweep_ab/parent/sweep.cu
+
+or a variant of the current source at build/sweep_ab/<name>.cu; two more
+are made from the current source by SWEEP_PATCHES ("cull_only": no sweep
+phase, so the walk's time; "no_groups": every ray tests every cluster box,
+without the group boxes). Each is built with nvcc in parallel beside the
+package's own source ("new"). It prints:
+
+  1. the card, and ptxas's report of every variant;
+  2. check: every variant on chip_smoke's 2^20 room rays (closest and any
+     hit) and on the batches of one pass of room (1920x1080, d6) under
+     traverse.FORCE_SWEEP (K6's closest-hit batches and the pass's any-hit
+     batches), the rays whose outputs differ from the parent's and from
+     sweep_plain's in any bit (the package and no_groups must differ from
+     the twin in none), and the counted work per live ray
+     (chip_smoke.sweep_counts) on each set (--check stops here);
+  3. batches: per-pass sums of each variant's time on both sets (CUDA
+     events, 10 calls after 3 warm-ups per batch), the variants in turn and
+     back (old, new, new, old), each batch's time for the parent and the
+     package, and the per-pass bounds (chip_smoke.bvh_bound);
+  4. renders: room (1920x1080, 4 spp, d6) through K3, then under
+     FORCE_SWEEP through each variant but cull_only, in the same order,
+     then through K3 again.
+
 `python3 prof_room.py --policy` times the two bounce loops of integrator
 "mis" against each other in each arm of the JAX package's policy for the
 refill loop: ibl (scenes/ibl/ibl.xml, 1024x1024, POLICY_IBL_SPP spp, d6; an
@@ -776,6 +804,183 @@ def cluster_ab(torch, render_image, parse_scene_file, RenderOptions):
                                                       for n, v in times.items()), flush=True)
 
 
+# variants made from csrc/sweep.cu by one replacement each
+SWEEP_PATCHES = {
+    # no sweep phase: every pair is listed, none is tested, so no range shrinks (an upper bound of the walk)
+    "cull_only": ("const int items = min(sh.npair[parity], kPairs) * kWin;",
+                  "const int items = 0 * min(sh.npair[parity], kPairs) * kWin;"),
+    # every ray tests every cluster box: the walk without its group boxes (they are still built)
+    "no_groups": ("if (kAnyHit ? !slab_nan(ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, r, r.tmax) : !widened_hit(ga, gb, r, cap)) {",
+                  "if (false) {"),
+}
+
+
+def sweep_variants(torch, sweep, _build):
+    """{name: (closest(cl_aabb, tris, n_tri, *rays), occluded(...))}: the
+    staged sources under build/sweep_ab, the package's source patched by
+    each of SWEEP_PATCHES ("cull_only": an empty sweep phase, so no range
+    shrinks, an upper bound of the walk's time; "no_groups": every ray
+    tests every cluster box), and the package's own source ("new"), built
+    with nvcc in parallel and called alike, then the package's wrappers
+    ("package")."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    staged = ROOT / "build" / "sweep_ab"
+    staged.mkdir(parents=True, exist_ok=True)
+    source = (_build.CSRC / "sweep.cu").read_text()
+    generated = staged / "gen"
+    generated.mkdir(exist_ok=True)
+    for name, (old, new) in SWEEP_PATCHES.items():
+        if source.count(old) != 1:
+            raise RuntimeError(f"csrc/sweep.cu does not hold the line the {name} variant replaces")
+        (generated / f"{name}.cu").write_text(source.replace(old, new))
+    srcs = (sorted([*staged.glob("*.cu"), *staged.glob("*/sweep.cu")])
+            + [generated / f"{name}.cu" for name in SWEEP_PATCHES] + [_build.CSRC / "sweep.cu"])
+
+    def build(src):
+        name = "new" if src.parent == _build.CSRC else src.stem if src.parent in (staged, generated) \
+            else src.parent.name
+        lib_path = staged / f"{name}.so"
+        return name, src, lib_path, subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib_path), str(src)],
+            capture_output=True, text=True)
+
+    with ThreadPoolExecutor(8) as pool:
+        built = list(pool.map(build, srcs))
+    out = {}
+    for name, src, lib_path, proc in built:
+        print(f"[ptxas {name}] exit {proc.returncode}\n{proc.stderr}{proc.stdout}", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}")
+        lib = ctypes.CDLL(str(lib_path))
+        lib.tt_sweep_closest.argtypes = [P, I, P, I, I] + [P] * 4 + [I] + [P] * 5
+        lib.tt_sweep_occluded.argtypes = [P, I, P, I, I] + [P] * 4 + [I, P, P]
+
+        def make(lib):
+            def closest(cl, tris, n_tri, *rays):
+                n = rays[0].shape[0]
+                t, u, v = (torch.empty(n, device="cuda") for _ in range(3))
+                prim = torch.empty(n, dtype=torch.int32, device="cuda")
+                code = lib.tt_sweep_closest(cl.data_ptr(), cl.shape[0], tris.data_ptr(), tris.shape[0], n_tri,
+                                            *(r.data_ptr() for r in rays), n, t.data_ptr(), u.data_ptr(),
+                                            v.data_ptr(), prim.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return t, u, v, prim
+
+            def occluded(cl, tris, n_tri, *rays):
+                occ = torch.empty(rays[0].shape[0], dtype=torch.bool, device="cuda")
+                code = lib.tt_sweep_occluded(cl.data_ptr(), cl.shape[0], tris.data_ptr(), tris.shape[0], n_tri,
+                                             *(r.data_ptr() for r in rays), rays[0].shape[0], occ.data_ptr(),
+                                             torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+                return occ
+            return closest, occluded
+
+        out[name] = make(lib)
+    out["package"] = (sweep.closest, sweep.occluded)
+    print(f"[ptxas package]\n{_build.build('sweep')[2]}", flush=True)
+    return out
+
+
+def sweep_ab(torch, render_image, parse_scene_file, RenderOptions):
+    """K6: the staged variants against the package's kernel (see the module
+    docstring)."""
+    import chip_smoke as cs
+    from take_tpu_torch.geometry import _build, packet, sweep, traverse
+
+    room = parse_scene_file(str(ROOM), device="cuda")
+    bvh, n_tri = room.bvh, room.meta.n_tri
+    tables = (bvh.cl_aabb, bvh.tris, n_tri)
+    ks = sweep_variants(torch, sweep, _build)
+    names = list(ks)
+    lo = bvh.node_min[0].amin(dim=0).cpu().numpy().astype(np.float64)
+    hi = bvh.node_max[0].amax(dim=0).cpu().numpy().astype(np.float64)
+    pad = 0.02 * (hi - lo)
+    mix, _ = cs.make_rays(torch, room, np.random.default_rng(SEED), 1 << 20, lo + pad, hi - pad)
+    opts = RenderOptions(spp=SPP, max_depth=DEPTH, seed=SEED)
+    sets = {
+        "mix": [("closest", mix), ("anyhit", mix)],
+        "room": cs.capture_queries(torch, room, dataclasses.replace(opts, spp=1), sweep_route=True),
+    }
+    ref = "parent" if "parent" in ks else "package"
+    exact = {"new", "package", "no_groups"}  # must equal the twin bit for bit; cull_only answers nothing
+
+    for label, calls in sets.items():
+        diff = defaultdict(lambda: defaultdict(int))
+        work = defaultdict(lambda: np.zeros(4))
+        for j, (kind, rays) in enumerate(calls):
+            want = sweep.sweep_plain(*tables, *rays, any_hit=kind == "anyhit")
+            base = (ks[ref][0] if kind == "closest" else ks[ref][1])(*tables, *rays)
+            for name, fns in ks.items():
+                got = (fns[0] if kind == "closest" else fns[1])(*tables, *rays)
+                torch.cuda.synchronize()
+                if kind == "closest":
+                    same = torch.stack([x.view(torch.int32) == y.view(torch.int32) for x, y in zip(got, base)])
+                    twin = torch.stack([x.view(torch.int32) == y.view(torch.int32) for x, y in zip(got, want)])
+                    same, twin = same.all(dim=0), twin.all(dim=0)
+                else:
+                    same, twin = got == base, got == want
+                diff[name][kind] += int((~same).sum())
+                diff[name][f"{kind} vs twin"] += int((~twin).sum())
+                if name in exact and not twin.all():
+                    raise RuntimeError(f"{label} batch {j}: K6 {kind} ({name}) differs from sweep_plain on "
+                                       f"{int((~twin).sum())} rays")
+            diff["rays"][kind] += rays[0].shape[0]
+            if hasattr(sweep, "sweep_work"):
+                work[kind] += np.array(cs.sweep_counts(torch, sweep, room, rays, kind == "anyhit", seed=j))
+        print(f"[check {label}] the package equals sweep_plain bit for bit on {len(calls)} batches; per variant "
+              f"the rays whose outputs differ from {ref}'s and from the twin's in any bit (closest: t, u, v, prim; "
+              f"any hit: occ): " + "; ".join(f"{n} {dict(v)}" for n, v in diff.items()), flush=True)
+        per = {kind: [kind for kind, _ in calls].count(kind) for kind in work}
+        if work:
+            print(f"[work {label}] per live ray, mean over the batches: " + "; ".join(
+                f"{kind} {w[0] / per[kind]:.1f} boxes walked, {w[1] / per[kind]:.3f} clusters entered, "
+                f"{w[2] / per[kind]:.1f} triangle rows (the parent kernel {w[3] / per[kind]:.0f})"
+                for kind, w in work.items()), flush=True)
+    if "--check" in sys.argv[1:]:
+        return
+    order = names + names[::-1]
+    for label, calls in sets.items():
+        sums, per_batch = defaultdict(lambda: defaultdict(list)), defaultdict(lambda: defaultdict(list))
+        for name in order:
+            closest, occluded = ks[name]
+            tot = defaultdict(float)
+            for j, (kind, rays) in enumerate(calls):
+                fn = closest if kind == "closest" else occluded
+                ms = cs.time_call(torch, lambda: fn(*tables, *rays), iters=10)
+                tot[kind] += ms
+                per_batch[name][j].append(ms)
+            for kind, v in tot.items():
+                sums[kind][name].append(v)
+        for kind, by in sums.items():
+            print(f"[batches {label}] {kind} per pass, ms (in order {order}): " + "; ".join(
+                f"{n} {', '.join(f'{x:.4f}' for x in v)} (mean {statistics.mean(v):.4f})" for n, v in by.items()),
+                flush=True)
+        for name in (ref, "package"):
+            print(f"[per batch {label} {name}] " + "; ".join(
+                f"{j}:{calls[j][0]} {statistics.mean(v):.4f}" for j, v in sorted(per_batch[name].items())), flush=True)
+        bounds = defaultdict(float)
+        for j, (kind, rays) in enumerate(calls):
+            bounds[kind] += cs.bvh_bound(torch, packet, bvh, rays, kind == "anyhit", seed=j)[0]
+        print(f"[bounds {label}] per pass: " + ", ".join(f"{k} {v:.4f} ms" for k, v in bounds.items()), flush=True)
+    render_image(room, dataclasses.replace(opts, spp=1))  # warm-up, K3 route
+    with mock.patch.object(traverse, "FORCE_SWEEP", True):
+        render_image(room, dataclasses.replace(opts, spp=1))
+    times = defaultdict(list)
+    for name in ["K3 route"] + [n for n in order if n != "cull_only"] + ["K3 route"]:  # cull_only misses
+        if name == "K3 route":
+            dt, _ = timed(torch, render_image, room, opts, "room through K3")
+        else:
+            closest = ks[name][0]
+            with mock.patch.object(traverse, "FORCE_SWEEP", True), mock.patch.object(sweep, "closest", closest):
+                dt, _ = timed(torch, render_image, room, opts, f"room under FORCE_SWEEP through {name}")
+        times[name].append(dt)
+    print("[renders room, FORCE_SWEEP] " + "; ".join(f"{n} {', '.join(f'{x:.4f}' for x in v)} s"
+                                                    for n, v in times.items()), flush=True)
+
+
 def policy(torch, render_image, parse_scene_file, RenderOptions):
     from take_tpu_torch.integrator import path_tracer
     from take_tpu_torch.materials import disney
@@ -828,7 +1033,7 @@ def main():
     print(f"[card] {smi('name,power.limit')}", flush=True)
     args = sys.argv[1:]
     run = (textured if "--textured" in args else k3 if "--k3" in args else brute_ab if "--brute" in args
-           else cluster_ab if "--cluster" in args else policy if "--policy" in args else room)
+           else cluster_ab if "--cluster" in args else sweep_ab if "--sweep" in args else policy if "--policy" in args else room)
     run(torch, render_image, parse_scene_file, RenderOptions)
 
 

@@ -307,20 +307,42 @@ def test_traversal_launches_are_counted_and_checked(room, room_rays):
     assert not any(_launch.LAUNCHES.values())
 
 
+def _sweep_equal(cl, tris, n_tri, rays):
+    """K6 closest and any hit against sweep_plain on `rays`: equal bit for
+    bit (the kernel tests the twin's clusters and rounds its triangle test
+    as the twin does)."""
+    k = sweep.closest(cl, tris, n_tri, *rays)
+    o_k = sweep.occluded(cl, tris, n_tri, *rays)
+    p = sweep.sweep_plain(cl, tris, n_tri, *rays)
+    o_p = sweep.sweep_plain(cl, tris, n_tri, *rays, any_hit=True)
+    torch.cuda.synchronize()
+    _assert_bits_equal(k, p)
+    assert torch.equal(o_k, o_p)
+    return k, o_k
+
+
 @pytest.mark.cuda
 def test_sweep_kernels_match_twin(room, room_rays):
-    """K6 closest and any hit against sweep_plain on room rays."""
+    """K6 closest and any hit on room rays: sweep_plain's answers bit for
+    bit, so also within the closest-hit gate; dead lanes miss."""
     args = (room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri)
-    k = sweep.closest(*args, *room_rays)
-    p = sweep.sweep_plain(*args, *room_rays)
-    torch.cuda.synchronize()
-    _closest_agree(room, k, p, room_rays)
-    o_k = sweep.occluded(*args, *room_rays)
-    o_p = sweep.sweep_plain(*args, *room_rays, any_hit=True)
-    bad = (o_k != o_p).nonzero()[:, 0]
-    assert bad.numel() <= N // 10000
-    assert near_boundary(torch, room.geometry, room.meta.n_tri, *(r[bad] for r in room_rays), None).all()
-    assert (o_k == (k[3] >= 0))[o_k == o_p].all()
+    k, o_k = _sweep_equal(*args, room_rays)
+    _closest_agree(room, k, sweep.sweep_plain(*args, *room_rays), room_rays)
+    assert (o_k == (k[3] >= 0)).all() and not o_k[room_rays[3] <= 0].any()
+
+
+@pytest.mark.cuda
+def test_sweep_kernels_on_captured_batches(room):
+    """K6 on the queries a room render launches under FORCE_SWEEP (one pass
+    of a 192x108, 1 spp, d6 render: its closest-hit batches, and any hit on
+    the pass's any-hit batches): sweep_plain's answers bit for bit."""
+    from take_tpu_torch.scene.types import RenderOptions
+
+    calls = capture_queries(torch, with_res(room, 192, 108), RenderOptions(spp=1, max_depth=6, seed=0),
+                            sweep_route=True)
+    assert [k for k, _ in calls].count("closest") == 8 and [k for k, _ in calls].count("anyhit") == 7
+    for _, rays in calls:
+        _sweep_equal(room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri, rays)
 
 
 @pytest.mark.cuda
@@ -345,19 +367,28 @@ def test_sweep_dead_padded_and_tail_lanes_miss(room, room_rays):
 
 @pytest.mark.cuda
 def test_sweep_refuses_what_it_cannot_take(room, room_rays):
-    """Bad inputs and an over-large cluster table raise; nothing falls back
-    to the twin, and nothing is counted as launched."""
+    """Bad inputs raise; nothing falls back to the twin, and nothing is
+    counted as launched. A table of more than 16,384 clusters (room's ten
+    times over, 16,640, which the parent kernel's shared-memory list
+    refused) is streamed and answered as sweep_plain answers it, bit for
+    bit, with hits in the last copy."""
     args = (room.bvh.cl_aabb, room.bvh.tris, room.meta.n_tri)
     _launch.reset_launches()
     with pytest.raises(ValueError, match="ro"):
         sweep.closest(*args, room_rays[0].double(), *room_rays[1:])
     with pytest.raises(ValueError, match="cl_aabb"):
         sweep.occluded(room.bvh.cl_aabb[:, :6], *args[1:], *room_rays)
-    most = sweep._lib().tt_sweep_max_clusters()
-    huge = torch.full((most + 8, 8), float("nan"), device="cuda")
-    with pytest.raises(RuntimeError, match="clusters"):
-        sweep.closest(huge, room.bvh.tris, room.meta.n_tri, *room_rays)
+    with pytest.raises(ValueError, match="aligned"):
+        sweep.closest(torch.zeros(args[0].numel() + 1, device="cuda")[1:].view(args[0].shape), *args[1:],
+                      *room_rays)
     assert not any(_launch.LAUNCHES.values())
+    bvh = room.bvh
+    _, cl, tris = tiled_tables(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, 10, (20.0, 0.0, 0.0))
+    assert cl.shape[0] == 16640 > 16384
+    ro, rd, tmin, tmax = (r[:512].clone() for r in room_rays)
+    ro[1::2, 0] += 9 * 20.0  # into the last copy
+    k, _ = _sweep_equal(cl, tris, tris.shape[0], (ro, rd, tmin, tmax))
+    assert (k[3][1::2] >= 9 * bvh.sup_aabb.shape[0] * 512).sum() > 50
 
 
 @pytest.mark.cuda

@@ -67,11 +67,32 @@ line and any failure raises, so the exit code is non-zero:
       shadow rays toward the map carry tmax = +inf (K2 there also equal to
       brute.reference bit for bit).
 
+  grad (scenes/cbox/cbox.xml at 1024x1024; gradients through K1/K2, and K3
+  on a BVH scene):
+  14. the replay primal: render_image with integrator "mis_replay" at the
+      cbox cell's settings through K1/K2 alone, equal to the cbox image bit
+      for bit, timed beside the scan loop;
+  15. card-side gradients at 64x64: every table of render_loss_grad's
+      gradient Scene through the kernels against the same with brute's
+      closest/occluded patched to the plain twins, replay against AD, the
+      red wall's albedo against central FD, and the texel gradient of
+      tests/test_grad_textured_bvh.py's BVH scene through K3 against FD;
+  16. inverse: a 16-spp target at the true red wall and light, then 4 Adam
+      steps from gray walls and half the light (a sigmoid and a log, as in
+      benchmarks/inverse_demo.py) at 1024x1024, 4 spp, d4, grad_mode
+      "auto" (replay at this size), a fresh sample window each step: the
+      loss and seconds per gradient (forward and backward, synchronised)
+      each step, K1/K2 alone launched, every gradient finite, the loss
+      falling, both parameters moving toward the truth, peak memory; then
+      one pass of GRAD_AB_PATHS paths under "ad" and "replay", each timed
+      with its peak memory.
+
 It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
 and bounds in cbox, mis and ibl, and their launches in mis and ibl; K4 and
 K5 their counted work, per-pass times and bounds, launches and the render
-time under FORCE_CLUSTER; K6 the same under FORCE_SWEEP) and, last, the
+time under FORCE_CLUSTER; K6 the same under FORCE_SWEEP; K1 and K2 their
+launches in one gradient step, `launches_grad_step`) and, last, the
 device JSON line. It fails without a CUDA device, and when run outside a
 checkout of the repo.
 """
@@ -104,6 +125,14 @@ TEX_TWIN = 64  # the resolution of textured's kernel-vs-twin render
 IBL_SPP, IBL_DEPTH, IBL_SMALL = 64, 6, 128  # ibl at its published 1024x1024 and d6; spp cut from 256
 # the closed-form azimuth environment of tests/test_ibl_analytic.py: (spp, rtol) per integrator
 AZIMUTH = {"mis": (512, 0.02), "one_sample_mis": (512, 0.04), "raw": (1024, 0.08)}
+# the grad cell: an inverse-rendering loop on cbox at 1024x1024 (4 spp, d4,
+# Adam on the red wall's reflectance and the light scale), its target at
+# 16 spp; the card-side gradient checks at 64x64; the AD/replay pass size
+GRAD_SPP, GRAD_TARGET_SPP, GRAD_STEPS, GRAD_LR, GRAD_SEED = 4, 16, 4, 0.1, 11
+GRAD_SMALL, GRAD_AB_PATHS = 64, 1 << 18
+GRAD_TABLE_TOL = 1e-3  # per-table gradients, kernels vs twins, of the table's largest magnitude
+GRAD_REPLAY_TOL = 1e-5  # replay vs AD, of max(the table's largest magnitude, 1)
+GRAD_FD_RTOL = 0.03  # the red wall's albedo gradient vs central FD (tests/test_grad.py's rtol)
 SOURCES = ("brute", "traverse", "cluster", "sweep")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
@@ -732,7 +761,8 @@ def timed_render(torch, render_image, scene, options):
 def cbox_cell(torch, dev, out_dir):
     """cbox: K1/K2 parity, the 1024x1024 render through K1/K2 alone, the
     256x256 kernels-vs-twins check, times, and K1/K2 on the batches of one
-    pass. Returns the kernels' entries and the render's launches."""
+    pass. Returns the kernels' entries, the render's launches, its image and
+    its time in seconds."""
     from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image
@@ -791,7 +821,7 @@ def cbox_cell(torch, dev, out_dir):
              bound_ms=bounds[key][0], bound_by=bounds[key][1], library_ms=None,
              cbox_pass_ms=passes[key][0], cbox_pass_bound_ms=passes[key][1])
         for key, line, err in (("closest", 77, err_closest), ("anyhit", 129, err_anyhit))
-    ], launches
+    ], launches, img, dt
 
 
 def brute_bounds(torch, scene, rays):
@@ -1296,6 +1326,230 @@ def ibl_cell(torch, dev, out_dir):
     return launches, passes
 
 
+def table_grads_close(torch, label, got, want, tol, floor=0.0):
+    """Every float table of two gradient Scenes: |got - want| within
+    tol * max(the table's largest |want|, floor), and got exactly zero
+    where want is. Returns the largest error over the scale."""
+    from take_tpu_torch.scene.types import float_tables
+
+    worst, got, want = 0.0, float_tables(got), float_tables(want)
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        if not torch.isfinite(g).all() or not torch.isfinite(w).all():
+            raise RuntimeError(f"{label}: {key} has a non-finite gradient")
+        scale = max(float(w.abs().max()), floor)
+        if scale == 0.0:
+            if g.any():
+                raise RuntimeError(f"{label}: {key} is 0 in the reference, not here")
+            continue
+        err = float((g - w).abs().max()) / scale
+        worst = max(worst, err)
+        if err > tol:
+            raise RuntimeError(f"{label}: {key} differs by {err:.3e} of its scale (limit {tol})")
+    return worst
+
+
+def textured_bvh_scene(dev):
+    """tests/test_grad_textured_bvh.py's 16x16 scene (a textured floor, 120
+    Disney triangles, an area light; BVH), built by the port from its seed."""
+    from take_tpu_torch.core.camera import Camera
+    from take_tpu_torch.scene.build import SceneBuilder
+    from take_tpu_torch.scene.types import MAT_DIFFUSE, MAT_DISNEY_BSDF
+
+    rng = np.random.default_rng(2)
+    b = SceneBuilder()
+    b.camera = Camera(16, 16, (0.0, 2.5, 6.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0), 45.0)
+    tex_id = b.add_texture_image(rng.uniform(0.2, 0.9, (8, 8, 3)).astype(np.float32))
+    m_floor = b.add_material(MAT_DIFFUSE, tex_image=tex_id, tex_kind=1)
+    s = 6.0
+    verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s]], np.float32)
+    uvs = np.array([[0, 0], [4, 0], [4, 4], [0, 4]], np.float32)
+    b.add_mesh(verts, np.array([[0, 2, 1], [0, 3, 2]]), m_floor, uvs=uvs)
+    m_disney = b.add_material(MAT_DISNEY_BSDF, tex_value=(0.6, 0.4, 0.3), roughness=0.5, metallic=0.3)
+    centers = rng.uniform(-3, 3, (120, 3)) * np.array([1, 0.3, 1])
+    centers[:, 1] += 0.8
+    for c in centers:
+        v = c + rng.uniform(-0.25, 0.25, (3, 3))
+        b.add_mesh(v.astype(np.float32), np.array([[0, 1, 2]]), m_disney)
+    m_l = b.add_material(MAT_DIFFUSE, tex_value=(0.0, 0.0, 0.0))
+    lv = np.array([[-1, 4, -1], [1, 4, -1], [1, 4, 1], [-1, 4, 1]], np.float32)
+    b.add_mesh(lv, np.array([[0, 1, 2], [0, 2, 3]]), m_l, emission=(20.0, 20.0, 20.0))
+    return b.build(device=dev, build_bvh=True)
+
+
+def scalar_grad_and_fd(torch, f, eps):
+    """(d f / d d at 0 by autograd, central FD of f with step eps)."""
+    d = torch.zeros((), device=DEVICE, requires_grad=True)
+    f(d).backward()
+    with torch.no_grad():
+        fd = (float(f(torch.tensor(eps, device=DEVICE))) - float(f(torch.tensor(-eps, device=DEVICE)))) / (2 * eps)
+    return float(d.grad), fd
+
+
+def grad_parity(torch, scene, red):
+    """The card-side gradient checks at 64x64 (through K1/K2 unless
+    patched): per-table gradients through the kernels against the twins'
+    and replay against AD; the red wall's albedo against central FD; the
+    textured BVH scene's texel block through K3 against FD."""
+    from take_tpu_torch import grad
+    from take_tpu_torch.geometry import _launch, brute
+    from take_tpu_torch.scene import edit
+    from take_tpu_torch.scene.types import RenderOptions
+
+    small = with_res(scene, GRAD_SMALL)
+    n = GRAD_SMALL * GRAD_SMALL
+    pix = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    target = torch.as_tensor(np.random.default_rng(SEED).uniform(0.0, 0.5, (n, 3)), dtype=torch.float32,
+                             device=DEVICE)
+    opts = RenderOptions(spp=1, max_depth=MAX_DEPTH, seed=SEED, grad_mode="ad")
+    _launch.reset_launches()
+    loss_k, g_k = grad.render_loss_grad(small, opts, pix, target, GRAD_SPP)
+    torch.cuda.synchronize()
+    launches = dict(_launch.LAUNCHES)
+    if not (launches["closest"] and launches["anyhit"]) or launches["closest_plain"] or launches["anyhit_plain"]:
+        raise RuntimeError(f"the 64x64 gradient did not run on K1/K2 alone: {launches}")
+    with mock.patch.object(brute, "closest", brute.closest_plain), \
+            mock.patch.object(brute, "occluded", brute.occluded_plain):
+        loss_p, g_p = grad.render_loss_grad(small, opts, pix, target, GRAD_SPP)
+    err_twin = table_grads_close(torch, "kernels vs twins", g_k, g_p, GRAD_TABLE_TOL)
+    loss_r, g_r = grad.render_loss_grad(small, dataclasses.replace(opts, grad_mode="replay"), pix, target, GRAD_SPP)
+    err_replay = table_grads_close(torch, "replay vs AD", g_r, g_k, GRAD_REPLAY_TOL, floor=1.0)
+    phase("grad", f"{GRAD_SMALL}x{GRAD_SMALL} {GRAD_SPP} samples d{MAX_DEPTH}: loss {float(loss_k):.6f} (twins "
+          f"{float(loss_p):.6f}, replay {float(loss_r):.6f}); every table through K1/K2 ({launches['closest']} "
+          f"K1, {launches['anyhit']} K2 launches) vs the twins within {err_twin:.3e} of its scale (limit "
+          f"{GRAD_TABLE_TOL}); replay vs AD within {err_replay:.3e} (limit {GRAD_REPLAY_TOL})")
+
+    base = small.materials.attr[red, 7:10]
+    g, fd = scalar_grad_and_fd(torch, lambda d: grad.render_radiance(
+        edit.with_material_reflectance(small, red, base + d), opts, pix, 0, GRAD_SPP).mean(), 3e-3)
+    phase("grad", f"red wall albedo: autograd {g:.6e}, central FD {fd:.6e} (rtol {GRAD_FD_RTOL})")
+    if not abs(g - fd) <= GRAD_FD_RTOL * abs(fd) + 1e-4 or abs(fd) < 1e-4:
+        raise RuntimeError("the red wall's albedo gradient disagrees with FD")
+
+    tex = textured_bvh_scene(DEVICE)
+    tpix = torch.arange(16 * 16, dtype=torch.int32, device=DEVICE)
+    mask = torch.zeros_like(tex.textures.data)
+    mask[0, 2:6, 2:6, :] = 1.0
+    topts = RenderOptions(spp=1, max_depth=3, seed=5)
+
+    def f(d):
+        t = dataclasses.replace(tex.textures, data=tex.textures.data + d * mask)
+        return grad.render_radiance(dataclasses.replace(tex, textures=t), topts, tpix, 0, 96).mean()
+
+    _launch.reset_launches()
+    g_t, fd_t = scalar_grad_and_fd(torch, f, 5e-3)
+    launches_t = {k: v for k, v in _launch.LAUNCHES.items() if v}
+    phase("grad", f"textured BVH 16x16 texel block: autograd {g_t:.6e}, central FD {fd_t:.6e} (rtol 0.05; "
+          f"launches {launches_t})")
+    if set(launches_t) != {"packet_closest", "packet_anyhit"}:
+        raise RuntimeError(f"the textured gradient did not run on K3 alone: {launches_t}")
+    if fd_t <= 1e-4 or not abs(g_t - fd_t) <= 0.05 * abs(fd_t) + 1e-5:
+        raise RuntimeError("the texel gradient through K3 disagrees with FD")
+
+
+def grad_cell(torch, dev, out_dir, mis_img, mis_dt):
+    """grad: the replay primal at 1024x1024 against the mis image, the
+    card-side gradient checks, the inverse-rendering loop (Adam, 4 steps at
+    1024x1024, 4 spp, d4, grad_mode "auto" = replay) and AD against replay on
+    one pass of GRAD_AB_PATHS paths. Returns K1/K2's launches in one step."""
+    from take_tpu_torch import grad
+    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene import edit
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    scene = with_res(parse_scene_file(str(SCENE), device=dev), RES)
+    options = RenderOptions(spp=SPP, max_depth=MAX_DEPTH, seed=SEED, integrator="mis_replay")
+    img, launches = render_counted(torch, _launch, render_image, scene, options, ("closest", "anyhit"),
+                                   "cbox mis_replay")
+    if not np.array_equal(img, mis_img):
+        raise RuntimeError("the mis_replay image differs from the mis image")
+    dt, mrays = timed_render(torch, render_image, scene, options)
+    phase("grad", f"mis_replay {RES}x{RES} {SPP} spp d{MAX_DEPTH} through K1/K2 alone ({launches}): equal to the "
+          f"mis image bit for bit; {dt:.4f} s = {mrays:.3f} Mrays/s (the scan loop {mis_dt:.4f} s)")
+
+    attr = scene.materials.attr.cpu().numpy()
+    red = int(np.argmin(np.abs(attr[:, 7:10] - np.array([0.63, 0.065, 0.05])).sum(axis=1)))
+    true_rgb = attr[red, 7:10].astype(np.float64)
+    grad_parity(torch, scene, red)
+
+    n = RES * RES
+    pix = torch.arange(n, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    target_img = render_image(scene, RenderOptions(spp=GRAD_TARGET_SPP, max_depth=MAX_DEPTH, seed=3))
+    target = torch.as_tensor(target_img[::-1].copy(), device=dev).reshape(n, 3)  # rows back to y order
+    phase("grad", f"target {RES}x{RES} {GRAD_TARGET_SPP} spp at the true red wall {true_rgb.tolist()} and light "
+          f"scale 1.0 in {time.perf_counter() - t0:.3f} s")
+
+    def logit(x):
+        return torch.tensor(np.log(x / (1.0 - x)), dtype=torch.float32, device=dev)
+
+    wall = logit(np.full(3, 0.5)).requires_grad_(True)
+    log_light = torch.tensor(np.log(0.5), dtype=torch.float32, device=dev).requires_grad_(True)
+    opt = torch.optim.Adam([wall, log_light], lr=GRAD_LR)
+    opts = RenderOptions(spp=GRAD_SPP, max_depth=MAX_DEPTH, seed=GRAD_SEED, grad_mode="auto")
+    if grad.resolve_mode(opts, n * GRAD_SPP) != "replay":
+        raise RuntimeError("grad_mode 'auto' did not pick replay at this size")
+
+    def errors():
+        with torch.no_grad():
+            return (float(np.linalg.norm(torch.sigmoid(wall).cpu().numpy() - true_rgb)),
+                    abs(float(torch.exp(log_light)) - 1.0))
+
+    err0 = errors()
+    losses, secs, step_launches = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(GRAD_STEPS):
+        opt.zero_grad()
+        s = edit.with_material_reflectance(scene, red, torch.sigmoid(wall))
+        s = edit.with_light_intensity_scale(s, torch.exp(log_light))
+        torch.cuda.synchronize()
+        _launch.reset_launches()
+        t0 = time.perf_counter()
+        loss, g = grad.render_loss_grad(s, opts, pix, target, GRAD_SPP, sample0=step * GRAD_SPP)
+        grad.backward(s, g)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = dict(_launch.LAUNCHES)
+        if not (launches["closest"] and launches["anyhit"]) or any(
+                v for k, v in launches.items() if k not in ("closest", "anyhit")):
+            raise RuntimeError(f"gradient step {step} did not run on K1/K2 alone: {launches}")
+        step_launches = {k: launches[k] for k in ("closest", "anyhit")}
+        bad = [k for k, v in float_tables(g).items() if not torch.isfinite(v).all()]
+        if bad or not (torch.isfinite(wall.grad).all() and torch.isfinite(log_light.grad)):
+            raise RuntimeError(f"gradient step {step}: non-finite gradients in {bad or 'the parameters'}")
+        losses.append(float(loss))
+        phase("grad", f"step {step}: loss {losses[-1]:.6e}, {secs[-1]:.4f} s, d/dwall_logit "
+              f"{wall.grad.tolist()}, d/dlog_light {float(log_light.grad):.6e}, launches {step_launches}")
+        opt.step()
+    peak = torch.cuda.max_memory_allocated()
+    err1 = errors()
+    wall, log_light = wall.detach(), log_light.detach()
+    phase("grad", f"inverse {RES}x{RES} {GRAD_SPP} spp d{MAX_DEPTH}, {GRAD_STEPS} Adam steps (lr {GRAD_LR}, replay): "
+          f"losses {losses}; s per gradient {secs} (median {float(np.median(secs)):.4f}); peak memory "
+          f"{peak / 2**30:.3f} GiB; red wall {torch.sigmoid(wall).tolist()} (distance to the truth {err0[0]:.4f} -> "
+          f"{err1[0]:.4f}), light scale {float(torch.exp(log_light)):.4f} ({err0[1]:.4f} -> {err1[1]:.4f})")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("the loss did not fall over the steps")
+    if not (err1[0] < err0[0] and err1[1] < err0[1]):
+        raise RuntimeError("a parameter did not move toward the truth")
+
+    k = GRAD_AB_PATHS // GRAD_SPP
+    ab = slice((n - k) // 2, (n + k) // 2)  # the middle rows: the box fills them
+    rows = []
+    for mode in ("ad", "replay", "replay", "ad"):
+        o = dataclasses.replace(opts, grad_mode=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grad.render_loss_grad(scene, o, pix[ab], target[ab], GRAD_SPP)
+        torch.cuda.synchronize()
+        rows.append(f"{mode} {time.perf_counter() - t0:.4f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    phase("grad", f"one pass of {GRAD_AB_PATHS} paths (the middle rows, d{MAX_DEPTH}), in order: " + "; ".join(rows))
+    return step_launches
+
+
 def main():
     import torch
 
@@ -1312,7 +1566,7 @@ def main():
     out_dir = ROOT / "build" / "take_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    kernels, launches = cbox_cell(torch, dev, out_dir)
+    kernels, launches, cbox_img, cbox_dt = cbox_cell(torch, dev, out_dir)
     room_kernels, launches_room = room_cell(torch, dev, out_dir)
     kernels += room_kernels
     launches_mis, passes_mis = mis_cell(torch, dev, out_dir)
@@ -1324,8 +1578,11 @@ def main():
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_ibl=launches_ibl[entry["name"]], ibl_pass_ms=passes_ibl[entry["name"]][0],
                      ibl_pass_bound_ms=passes_ibl[entry["name"]][1])
+    launches_grad = grad_cell(torch, dev, out_dir, cbox_img, cbox_dt)
+    for entry in kernels[:2]:  # K1, K2
+        entry.update(launches_grad_step=launches_grad[entry["name"]])
     phase("times", f"launches per default render: cbox {launches}, room {launches_room}, mis {launches_mis}, "
-          f"textured {launches_tex}, ibl {launches_ibl}")
+          f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -132,6 +132,21 @@ package's own source ("new"). It prints:
      FORCE_SWEEP through each variant but cull_only, in the same order,
      then through K3 again.
 
+`python3 prof_room.py --grad` times the two gradient modes of grad.py on
+scenes/cbox/cbox.xml at 1024x1024 (GRAD_SPP samples, max_depth 4, the L2
+loss of render_loss_grad against a GRAD_SPP-spp target) and prints:
+
+  1. the card;
+  2. modes: one render_loss_grad pass of each size in GRAD_PASSES paths
+     under grad_mode "ad" and "replay", interleaved ad, replay, replay, ad,
+     each on the host clock up to a synchronise with its peak memory
+     (torch.cuda.max_memory_allocated);
+  3. profile: one replay pass of 2^20 paths and one AD pass of 2^18 under
+     torch.profiler, the forward (radiance and loss) alone and then with
+     its backward: busy share, kernel time by kind, launches, and the
+     forward and the backward on the host clock.
+Each pass takes its pixels from the middle rows of the image.
+
 `python3 prof_room.py --policy` times the two bounce loops of integrator
 "mis" against each other in each arm of the JAX package's policy for the
 refill loop: ibl (scenes/ibl/ibl.xml, 1024x1024, POLICY_IBL_SPP spp, d6; an
@@ -174,6 +189,7 @@ TEX_SPP = 64
 WAVES = (1 << 16, 1 << 18, 1 << 20)
 IBL = ROOT / "scenes" / "ibl" / "ibl.xml"
 POLICY_IBL_SPP = 16
+GRAD_SPP, GRAD_PASSES = 4, (1 << 16, 1 << 18, 1 << 20)
 
 
 def smi(query):
@@ -1020,6 +1036,66 @@ def policy(torch, render_image, parse_scene_file, RenderOptions):
             profile_call(torch, lambda: render_image(scene, opts), f"ibl one pass, {name}", ranges)
 
 
+def grad_modes(torch, render_image, parse_scene_file, RenderOptions):
+    import chip_smoke as cs
+    from take_tpu_torch import grad
+
+    scene = cs.with_res(parse_scene_file(str(CBOX), device="cuda"), 1024)
+    cam = scene.meta.camera
+    n = cam.width * cam.height
+    img = render_image(scene, RenderOptions(spp=GRAD_SPP, max_depth=4, seed=3))
+    target = torch.as_tensor(img[::-1].copy(), device="cuda").reshape(n, 3)
+    pix = torch.arange(n, dtype=torch.int32, device="cuda")
+    opts = RenderOptions(spp=GRAD_SPP, max_depth=4, seed=11)
+    for mode in ("ad", "replay"):  # warm-up
+        grad.render_loss_grad(scene, dataclasses.replace(opts, grad_mode=mode), pix[:1024], target[:1024], GRAD_SPP)
+
+    def centre(paths):  # the pass's pixels from the middle rows, as a pass of the full image sees the box
+        k = paths // GRAD_SPP
+        return slice((n - k) // 2, (n + k) // 2)
+
+    for paths in GRAD_PASSES:
+        sl = centre(paths)
+        rows = []
+        for mode in ("ad", "replay", "replay", "ad"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            grad.render_loss_grad(scene, dataclasses.replace(opts, grad_mode=mode), pix[sl], target[sl], GRAD_SPP)
+            torch.cuda.synchronize()
+            rows.append(f"{mode} {time.perf_counter() - t0:.4f} s peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"[grad {paths} paths] " + "; ".join(rows), flush=True)
+
+    def one_pass(paths, mode, backward=True):
+        """One pass: the radiance and loss, then (with `backward`) the
+        backward, each on the host clock up to a synchronise."""
+        s, _ = grad._leaves(scene)
+        sl = centre(paths)
+        host = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = grad._radiance(s, opts, pix[sl], 0, GRAD_SPP, mode)
+        loss = torch.sum((img - target[sl]) ** 2) / target[sl].numel()
+        torch.cuda.synchronize()
+        host["forward"] = time.perf_counter() - t0
+        if backward:
+            t0 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            host["backward"] = time.perf_counter() - t0
+            print(f"[grad {mode} pass of {paths} paths] host: forward {host['forward']:.4f} s, backward "
+                  f"{host['backward']:.4f} s = {host['backward'] / sum(host.values()):.4f} of the pass", flush=True)
+
+    # the backward runs on autograd's thread, out of a record_function range
+    # on this one, so the forward is profiled alone and the backward's share
+    # is the difference
+    for paths, mode in ((1 << 20, "replay"), (1 << 18, "ad")):
+        for backward in (False, True):
+            profile_call(torch, lambda: one_pass(paths, mode, backward),
+                         f"cbox 1024x1024 {mode} gradient pass of {paths} paths, "
+                         + ("forward and backward" if backward else "forward alone"))
+
+
 def main():
     import torch
 
@@ -1033,7 +1109,8 @@ def main():
     print(f"[card] {smi('name,power.limit')}", flush=True)
     args = sys.argv[1:]
     run = (textured if "--textured" in args else k3 if "--k3" in args else brute_ab if "--brute" in args
-           else cluster_ab if "--cluster" in args else sweep_ab if "--sweep" in args else policy if "--policy" in args else room)
+           else cluster_ab if "--cluster" in args else sweep_ab if "--sweep" in args else policy if "--policy" in args
+           else grad_modes if "--grad" in args else room)
     run(torch, render_image, parse_scene_file, RenderOptions)
 
 

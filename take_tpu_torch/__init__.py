@@ -1,14 +1,16 @@
 """take-tpu-torch: the PyTorch/CUDA port of take_tpu, for an NVIDIA H100.
 
-A differentiable path tracer's forward renderer. The scene is a dataclass
-of tensors on one device, chosen at build time; plain tensor code is torch,
-and the scene queries run in hand-written CUDA kernels for Hopper
-(geometry/brute.py, packet.py, cluster.py; csrc/). This package imports
-neither JAX nor take_tpu.
+A differentiable path tracer. The scene is a dataclass of tensors on one
+device, chosen at build time; plain tensor code is torch, and the scene
+queries run in hand-written CUDA kernels for Hopper (geometry/brute.py,
+packet.py, cluster.py, sweep.py; csrc/). This package imports neither JAX
+nor take_tpu.
 
 Public API:
     take_tpu_torch.load_scene(path, device=...)  -> Scene
     take_tpu_torch.render(scene, **options)      -> [H, W, 3] radiance image
+    take_tpu_torch.grad.render_loss_grad(...)    -> (loss, Scene-shaped gradient)
+    take_tpu_torch.scene.edit.with_*(scene, ...) -> an edited Scene
     take_tpu_torch.write_exr / read_exr          -> OpenEXR I/O
 """
 

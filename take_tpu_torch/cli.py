@@ -27,8 +27,8 @@ def main(argv=None):
         "-integrator", default="mis",
         choices=["mis", "mis_scan", "mis_wavefront", "mis_replay", "one_sample_mis",
                  "one_sample_mis_power", "raw"],
-        help="mis (= mis_scan) runs the scan loop, mis_wavefront the refill loop; mis_replay comes with the "
-        "gradients slice",
+        help="mis (= mis_scan) runs the scan loop, mis_wavefront the refill loop, mis_replay the early-exit "
+        "loop of the path-replay gradient (the same image as mis)",
     )
     ap.add_argument("-device", default="cuda", help="torch device (cuda or cpu)")
     args = ap.parse_args(argv)

@@ -23,8 +23,9 @@ and a room render is faster without it.
 
 import torch
 
+from take_tpu_torch.core.math import gather_rows
 from take_tpu_torch.geometry import cluster, packet, sweep
-from take_tpu_torch.scene.types import Hit, Scene
+from take_tpu_torch.scene.types import ATTR_EMIT, Hit, Scene
 
 FORCE_CLUSTER = False  # route BVH queries to K4/K5 instead of K3
 FORCE_SWEEP = False  # route closest-hit BVH queries to K6 (wins over FORCE_CLUSTER)
@@ -33,8 +34,14 @@ _BIG = packet.BIG
 
 
 def _traverse_backend(scene: Scene, ro, rd, tmin, tmax):
-    """(t, u, v, prim, found) of the closest triangle hits."""
+    """(t, u, v, prim, found) of the closest triangle hits.
+
+    The rays come in detached and the kernels read derived tables: the
+    traversal is constant under AD, as take_tpu's (its while loop and
+    Pallas kernels are primal-only), and emission stays differentiable
+    through the attribute gather in bvh_intersect."""
     bvh = scene.bvh
+    ro, rd, tmin, tmax = ro.detach(), rd.detach(), tmin.detach(), tmax.detach()
     if FORCE_SWEEP:
         t, u, v, prim = sweep.closest(bvh.cl_aabb, bvh.tris, scene.meta.n_tri, ro, rd, tmin, tmax)
     elif FORCE_CLUSTER:
@@ -50,7 +57,12 @@ def bvh_intersect(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     from take_tpu_torch.geometry.intersect import _merge_and_shade
 
     t, u, v, prim, found = _traverse_backend(scene, ro, rd, tmin, tmax)
-    attrs = scene.geometry.tri_attr[prim.clamp(min=0).long()]
+    # the brute path's gradient scope: geometry columns detached, the EMIT
+    # slice differentiable (the gather's backward adds into it)
+    A, idx = scene.geometry.tri_attr, prim.clamp(min=0).long()
+    rows = A.detach()[idx]
+    emit = gather_rows(A[:, ATTR_EMIT : ATTR_EMIT + 3], idx)
+    attrs = torch.cat([rows[:, :ATTR_EMIT], emit, rows[:, ATTR_EMIT + 3 :]], dim=1)
     tri_t = torch.where(found, t, _BIG)
     return _merge_and_shade(scene, ro, rd, tmin, tmax, tri_t, found, attrs, u, v)
 
@@ -60,6 +72,7 @@ def bvh_occluded(scene: Scene, ro, rd, tmin, tmax):
     from take_tpu_torch.geometry.intersect import _sph_t
 
     bvh, g = scene.bvh, scene.geometry
+    ro, rd, tmin, tmax = ro.detach(), rd.detach(), tmin.detach(), tmax.detach()
     if FORCE_CLUSTER:
         found = cluster.occluded(bvh.sup_aabb, bvh.cl_aabb, bvh.tris, ro, rd, tmin, tmax)
     else:

@@ -18,7 +18,10 @@ Point lights get a delta-NEE branch (the reference ignores them), and an
 environment map is one more NEE slot whose escapes are MIS-weighted (the
 JAX package's extensions).
 
-Forward only: callers run it under torch.inference_mode().
+`trace_mis` is differentiable by autograd through its loop (grad.py's "ad"
+mode); `trace_mis_replay` computes the same estimator with an early exit
+and a path-replay backward (grad.py's "replay" mode, the module's end).
+Primal renders run under torch.inference_mode() (render.py).
 """
 
 import torch
@@ -48,6 +51,8 @@ from take_tpu_torch.scene.types import (
     Hit,
     RenderOptions,
     Scene,
+    float_tables,
+    replace_tables,
 )
 
 # Minimum parametric distance of every ray (take_tpu/config.py C_EPSILON).
@@ -191,6 +196,11 @@ def _vertex_sample(scene: Scene, streams, i, hit, sp, rd):
     sample_ok = bpdf > 0.0
     # failed samples may carry a zero direction: substitute a unit one
     dir_out = torch.where(sample_ok[:, None], dir_out, dir_out.new_tensor([0.0, 0.0, 1.0]))
+    # detached sampling: the sampled direction is a constant under AD (its
+    # pdf stays attached), in every loop, as in take_tpu
+    # (path_tracer.py:283-290); reparameterisation terms through dir_out
+    # would reach later-bounce d^2 and cos terms whose backward overflows
+    dir_out = dir_out.detach()
     FG = bsdf_eval(scene, sp, dir_in, dir_out, sample_pdf=bpdf)
     dir_out = normalize(dir_out, eps=1e-30)
     new_ro = offset_origin(hit.pos, hit.geo_n, dir_out)
@@ -290,13 +300,15 @@ def rr_step(options: RenderOptions, streams, i, state, c, w, T):
 
     At bounce i >= options.rr_depth each live lane survives with
     p = clamp(max-channel of T * w, 0.05, 1) and is reweighted by 1/p.
-    Identity when rr_depth < 0 (the reference default).
+    p comes from detached T and w: the survival probability is an
+    estimator's choice, not a differentiated quantity. Identity when
+    rr_depth < 0 (the reference default).
     """
     if options.rr_depth < 0 or i < options.rr_depth:
         return state, c, w
     ro_, rd_, hit_, active_ = state
     u = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_RR))
-    p = torch.clamp(torch.amax(T * w, dim=-1), 0.05, 1.0)
+    p = torch.clamp(torch.amax(T.detach() * w.detach(), dim=-1), 0.05, 1.0)
     survive = u < p
     w = w * torch.where(survive & active_, 1.0 / p, 1.0)[:, None]
     return (ro_, rd_, hit_, active_ & survive), c, w
@@ -344,3 +356,141 @@ def trace_query_counts(scene: Scene, options: RenderOptions, ro, rd, streams):
         nominal += 2 * N
         state, _, _ = _bounce_step(scene, streams, i, state)
     return nominal, active_q
+
+
+# ---------------------------------------------------------------------------
+# Early-exit loop and path-replay backward
+# ---------------------------------------------------------------------------
+#
+# trace_mis_replay computes trace_mis's estimator with a loop that stops once
+# every lane is dead (one host sync per bounce, the JAX while_loop's
+# condition), and differentiates it by PATH REPLAY (take_tpu's
+# path_tracer.py:537-731): the forward keeps only its inputs; the backward
+# replays the bounce loop with the same RNG counters and takes each bounce's
+# vector-Jacobian product on its own, so backward memory is O(wavefront),
+# not O(wavefront x depth) like autograd through the scan loop.
+#
+# Math: L = sum_i T_i c_i with T_0 = 1, T_{i+1} = T_i w_i, (c_i, w_i) from
+# _bounce_step. For a parameter theta:
+#   dL/dtheta = sum_i T_i dc_i/dtheta + (dw_i/dtheta) T_i S_{i+1},
+#   S_{i+1} = sum_{j>i} (prod_{k=i+1..j} w_k) c_j  (the suffix radiance).
+# The suffix is exact by a two-pass replay: pass 1 replays without autograd
+# and stores the per-bounce (c_i, w_i) stacks ([D, N, 3] each; c = 0 and
+# w = 1 on bounces not reached); a reverse fold S_i = c_i + w_i S_{i+1}
+# gives S_{i+1}; pass 2 replays each bounce from a detached state and pulls
+# (gbar T_i, gbar T_i S_{i+1}) back through it. There is no quotient: the
+# single-pass form S_{i+1} = (L - A_{i+1}) / (T_i w_i) is 0/0 wherever a
+# throughput factor is exactly 0, and dropped the gradient of a pitch-black
+# albedo that autograd through the scan loop matched to finite differences
+# (take_tpu's room measurement, benchmarks/room_grad_fd.py). Sampled
+# directions are detached (_vertex_sample), so on scenes whose lobe sampling
+# does not depend on the parameters (diffuse) replay equals autograd through
+# the scan loop to float precision.
+
+
+def _replay_fwd_loop(scene: Scene, options: RenderOptions, ro, rd, streams):
+    """trace_mis's loop, stopping as soon as no lane is active."""
+    radiance, state = _camera_vertex(scene, ro, rd)
+    throughput = torch.ones_like(ro)
+    for i in range(options.max_depth + 1):
+        if not bool(state[3].any()):
+            break
+        state, c, w = _bounce_step(scene, streams, i, state)
+        state, c, w = rr_step(options, streams, i, state, c, w, throughput)
+        radiance = radiance + throughput * c
+        throughput = throughput * w
+    return radiance
+
+
+def _detach_state(state):
+    ro, rd, hit, active = state
+    return ro.detach(), rd.detach(), Hit(*(None if x is None else x.detach() for x in hit)), active
+
+
+class _Replay(torch.autograd.Function):
+    """The early-exit forward and the two-pass replay backward. The scene's
+    float tables come in as flat inputs (`tables`, keyed by `keys`), so
+    autograd sees them; the backward returns their gradients."""
+
+    @staticmethod
+    def forward(ctx, scene, options, ro, rd, streams, keys, *tables):
+        ctx.scene, ctx.options, ctx.keys = scene, options, keys
+        ctx.rays = (ro, rd, streams)  # streams is a tuple of tensors
+        return _replay_fwd_loop(scene, options, ro, rd, streams)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        ro, rd, streams = ctx.rays
+        options, keys = ctx.options, ctx.keys
+        tables = float_tables(ctx.scene)
+        leaves = [tables[k].detach().requires_grad_(ctx.needs_input_grad[6 + j]) for j, k in enumerate(keys)]
+        wanted = [x for x in leaves if x.requires_grad]
+        scene = replace_tables(ctx.scene, dict(zip(keys, leaves)))
+        gbar = gbar.detach()
+        acc = [None] * len(wanted)
+
+        def pull(outputs, cotangents):
+            pairs = [(o, g) for o, g in zip(outputs, cotangents) if o.requires_grad]
+            if not pairs or not wanted:
+                return
+            grads = torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True)
+            for j, g in enumerate(grads):
+                if g is not None:
+                    acc[j] = g if acc[j] is None else acc[j] + g
+
+        D = options.max_depth + 1
+        N = ro.shape[0]
+        # 1. the camera vertex (background and first-hit emission); the same
+        #    evaluation gives the replay's initial state
+        with torch.enable_grad():
+            radiance0, state0 = _camera_vertex(scene, ro, rd)
+            pull([radiance0], [gbar])
+        state0 = _detach_state(state0)
+
+        # 2. pass 1 without autograd: the per-bounce (c, w) stacks
+        cs = ro.new_zeros((D, N, 3))
+        ws = ro.new_ones((D, N, 3))
+        state, T = state0, torch.ones_like(ro)
+        with torch.no_grad():
+            for i in range(D):
+                if not bool(state[3].any()):
+                    break
+                state, c, w = _bounce_step(scene, streams, i, state)
+                state, c, w = rr_step(options, streams, i, state, c, w, T)
+                cs[i], ws[i] = c, w
+                T = T * w
+
+        # 3. the reverse fold S_i = c_i + w_i S_{i+1}, then pass 2: each
+        #    bounce replayed from a detached state and pulled back through
+        S_next = torch.zeros_like(cs)
+        S = ro.new_zeros((N, 3))
+        for i in range(D - 1, -1, -1):
+            S_next[i] = S
+            S = cs[i] + ws[i] * S
+        state, T = state0, torch.ones_like(ro)
+        for i in range(D):
+            if not bool(state[3].any()):
+                break
+            with torch.enable_grad():
+                new_state, c, w = _bounce_step(scene, streams, i, state)
+                new_state, c, w = rr_step(options, streams, i, new_state, c, w, T)
+                pull([c, w], [gbar * T, gbar * T * S_next[i]])
+            state = _detach_state(new_state)
+            T = T * w.detach()
+
+        grads = iter(acc)
+        out = [next(grads) if x.requires_grad else None for x in leaves]
+        return (None, None, None, None, None, None, *out)
+
+
+def trace_mis_replay(scene: Scene, options: RenderOptions, ro, rd, streams):
+    """trace_mis with an early-exit bounce loop and a path-replay backward.
+
+    The same estimator as trace_mis (the same RNG counters and per-bounce
+    math), bit for bit in the primal; its backward holds O(wavefront)
+    memory whatever the depth. Gradients reach the scene's float tables;
+    the rays and streams get none.
+    """
+    tables = float_tables(scene)
+    keys = tuple(tables)
+    return _Replay.apply(scene, options, ro, rd, streams, keys, *(tables[k] for k in keys))

@@ -15,7 +15,7 @@ tensors on the scene's device.
 import numpy as np
 import torch
 
-from take_tpu_torch.core.math import C_PI, C_TWOPI
+from take_tpu_torch.core.math import C_PI, C_TWOPI, gather_rows
 from take_tpu_torch.scene.types import EnvMap
 
 
@@ -125,10 +125,10 @@ def envmap_eval(env: EnvMap, d):
     x1i = torch.remainder(x0i + 1, W)
     y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
     y1i = torch.clamp(y0i + 1, 0, H - 1)
-    q00 = texels[y0i * W + x0i]
-    q01 = texels[y1i * W + x0i]
-    q10 = texels[y0i * W + x1i]
-    q11 = texels[y1i * W + x1i]
+    q00 = gather_rows(texels, y0i * W + x0i)
+    q01 = gather_rows(texels, y1i * W + x0i)
+    q10 = gather_rows(texels, y0i * W + x1i)
+    q11 = gather_rows(texels, y1i * W + x1i)
     out = (
         q00 * (1 - fx) * (1 - fy)
         + q10 * fx * (1 - fy)

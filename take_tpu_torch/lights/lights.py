@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from take_tpu_torch.core.math import C_TWOPI, cross, dot, normalize, safe_norm
+from take_tpu_torch.core.math import C_TWOPI, cross, dot, gather_rows, normalize, safe_norm
 from take_tpu_torch.core.sampling import sample_sphere_visible, sample_triangle
 from take_tpu_torch.scene.types import (
     LATTR_E1,
@@ -62,8 +62,16 @@ def power_pmf(scene: Scene, light_id):
 
 
 def gather_light_attrs(scene: Scene, light_id):
-    """Packed light rows [N, LATTR_DIM] for the selected ids [N]."""
-    return scene.lights.attr[light_id.long()]
+    """Packed light rows [N, LATTR_DIM] for the selected ids [N].
+
+    Only the intensity columns stay attached to the table: the geometry
+    columns are detached (visibility and shape derivatives are out of the
+    gradients' scope, as in take_tpu/lights/lights.py)."""
+    A = scene.lights.attr
+    idx = light_id.long()
+    la = A.detach()[idx]
+    inten = gather_rows(A[:, LATTR_INTENSITY : LATTR_INTENSITY + 3], idx)
+    return torch.cat([la[:, :LATTR_INTENSITY], inten, la[:, LATTR_INTENSITY + 3 :]], dim=1)
 
 
 def sample_on_light(scene: Scene, light_id, ref_pos, u1, u2) -> LightSample:

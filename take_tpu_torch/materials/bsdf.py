@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from take_tpu_torch.core.math import C_INVPI, C_INVTWOPI, dot, face_forward, normalize, reflect, to_world
+from take_tpu_torch.core.math import C_INVPI, C_INVTWOPI, dot, face_forward, gather_rows, normalize, reflect, to_world
 from take_tpu_torch.core.sampling import sample_cos_power, sample_hemisphere_cos
 from take_tpu_torch.materials import disney
 from take_tpu_torch.materials.textures import eval_reflectance_packed
@@ -58,7 +58,7 @@ class ShadePoint(NamedTuple):
 
 def make_shade_point(scene: Scene, hit) -> ShadePoint:
     """Gather material parameters and evaluate textures for a Hit batch."""
-    p = scene.materials.attr[hit.mat_id.long()]
+    p = gather_rows(scene.materials.attr, hit.mat_id.long())
     front = hit.front if hit.front is not None else torch.ones_like(hit.mat_id, dtype=torch.bool)
     refl = p[:, ST.MATTR_TEX_VALUE : ST.MATTR_TEX_VALUE + 3]
     if scene.meta.has_image_textures:

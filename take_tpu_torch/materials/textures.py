@@ -9,6 +9,7 @@ extrapolates rather than interpolates across the seam (texture.cpp:7-26).
 
 import torch
 
+from take_tpu_torch.core.math import gather_rows
 from take_tpu_torch.scene.types import (
     MATTR_TEX_IMAGE,
     MATTR_TEX_KIND,
@@ -47,15 +48,20 @@ def eval_reflectance_packed(scene: Scene, mat_params, uv, const_val):
     x2i = torch.where(x1i + 1 == wi, 0, x1i + 1)  # wrapped fetch column
     y2i = torch.where(y1i + 1 == hi, 0, y1i + 1)
 
-    img = scene.textures.data  # [n, Hmax, Wmax, 3]
-    # fetches clamp to the atlas, as JAX's gather does (x == w is reachable
-    # when the fractional part of a tiny negative coordinate rounds to 1)
-    ys = lambda i: i.clamp(0, img.shape[1] - 1)
-    xs = lambda i: i.clamp(0, img.shape[2] - 1)
-    q11 = img[tex_id, ys(y1i), xs(x1i)]
-    q12 = img[tex_id, ys(y2i), xs(x1i)]
-    q21 = img[tex_id, ys(y1i), xs(x2i)]
-    q22 = img[tex_id, ys(y2i), xs(x2i)]
+    n, Hm, Wm, _ = scene.textures.data.shape  # [n, Hmax, Wmax, 3]
+    texels = scene.textures.data.reshape(-1, 3)
+    base = tex_id.clamp(0, n - 1) * Hm
+
+    def fetch(yi, xi):
+        # fetches clamp to the atlas, as JAX's gather does (x == w is
+        # reachable when the fractional part of a tiny negative coordinate
+        # rounds to 1)
+        return gather_rows(texels, (base + yi.clamp(0, Hm - 1)) * Wm + xi.clamp(0, Wm - 1))
+
+    q11 = fetch(y1i, x1i)
+    q12 = fetch(y2i, x1i)
+    q21 = fetch(y1i, x2i)
+    q22 = fetch(y2i, x2i)
 
     # weights use the wrapped x2/y2; a 1-texel-wide image bumps x2 by one
     # (texture.cpp:17-25)

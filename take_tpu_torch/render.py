@@ -14,7 +14,7 @@ import torch
 
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.camera import generate_rays
-from take_tpu_torch.integrator.path_tracer import trace_mis
+from take_tpu_torch.integrator.path_tracer import trace_mis, trace_mis_replay
 from take_tpu_torch.integrator.variants import trace_one_sample_mis, trace_one_sample_mis_power, trace_raw
 from take_tpu_torch.integrator.wavefront import trace_wavefront
 from take_tpu_torch.scene.types import RenderOptions, Scene
@@ -41,8 +41,7 @@ def _trace_fn(scene: Scene, options: RenderOptions):
     if options.integrator in ("mis", "mis_scan"):
         return trace_mis
     if options.integrator == "mis_replay":
-        raise NotImplementedError(
-            "integrator 'mis_replay': its point is the replay gradient, which comes with the gradients slice")
+        return trace_mis_replay
     if options.integrator == "one_sample_mis":
         return trace_one_sample_mis
     if options.integrator == "one_sample_mis_power":

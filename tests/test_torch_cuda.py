@@ -652,3 +652,67 @@ def test_envmap_on_card_matches_cpu(card):
     np.testing.assert_allclose(p_g[same], p_c[same], rtol=1e-5)
     np.testing.assert_allclose(sd_g, sd_c, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(sp_g, sp_c, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k1_function_emission_grad_matches_twin(cbox_rays):
+    """K1's autograd Function (`intersect._BruteClosest`) on 2^16 cbox rays:
+    the tri_attr gradient through the kernel equals the one through
+    closest_plain (the module patched, as chip_smoke patches it), on the
+    lanes whose winners agree, within 1e-5 of its scale (the backward's
+    index_add_ adds in any order); it lies in the EMIT columns alone."""
+    from unittest import mock
+
+    from take_tpu_torch.geometry import intersect
+    from take_tpu_torch.scene.types import ATTR_EMIT
+
+    scene, rays = cbox_rays
+    g, n_tri = scene.geometry, scene.meta.n_tri
+    k = brute.closest(g.tri_rows, g.tri_attr, n_tri, *rays)
+    p = brute.closest_plain(g.tri_rows, g.tri_attr, n_tri, *rays)
+    w = torch.randn((N, g.tri_attr.shape[1]), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    w = w * (k[5] == p[5])[:, None]
+    grads = []
+    for fn in (brute.closest, brute.closest_plain):
+        attr = g.tri_attr.clone().requires_grad_(True)
+        with mock.patch.object(brute, "closest", fn):
+            attrs = intersect._BruteClosest.apply(g.tri_rows, attr, n_tri, *rays)[0]
+        (attrs * w).sum().backward()
+        grads.append(attr.grad)
+    scale = float(grads[1].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-5 * scale)
+    others = torch.ones(g.tri_attr.shape[1], dtype=torch.bool, device="cuda")
+    others[ATTR_EMIT : ATTR_EMIT + 3] = False
+    assert not grads[0][:, others].any()
+
+
+@pytest.mark.cuda
+def test_replay_grads_match_ad_on_card(card):
+    """cbox.xml at 32x32 (4 samples a pixel, d4) through K1/K2: every table
+    of the replay gradient within 1e-5 * max(|g|, 1) of autograd's."""
+    from take_tpu_torch.grad import render_loss_grad
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 32)
+    pix = torch.arange(32 * 32, dtype=torch.int32, device="cuda")
+    target = torch.full((32 * 32, 3), 0.2, device="cuda")
+    g = {mode: float_tables(render_loss_grad(scene, RenderOptions(spp=1, max_depth=4, grad_mode=mode), pix,
+                                             target, 4)[1])
+         for mode in ("ad", "replay")}
+    assert g["ad"]["materials.attr"].abs().max() > 0
+    for key, a in g["ad"].items():
+        torch.testing.assert_close(g["replay"][key], a, rtol=0, atol=1e-5 * max(float(a.abs().max()), 1.0), msg=key)
+
+
+@pytest.mark.cuda
+def test_mis_replay_image_equals_mis_on_card(card):
+    """integrator "mis_replay" renders cbox.xml at 64x64, 4 spp, d4 through
+    K1/K2 to the "mis" image bit for bit."""
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.types import RenderOptions
+
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 64)
+    a = render_image(scene, RenderOptions(spp=4, max_depth=4))
+    b = render_image(scene, RenderOptions(spp=4, max_depth=4, integrator="mis_replay"))
+    assert np.array_equal(a, b)

@@ -6,6 +6,8 @@ import os
 from unittest import mock
 
 import numpy as np
+import pytest
+import torch
 
 import take_tpu_torch.core.camera as tcam
 import take_tpu_torch.scene.build as tbuild
@@ -81,3 +83,15 @@ def with_res(scene, res, camera_cls):
     new = camera_cls(res, res, cam.lookfrom, cam.lookat, cam.up, cam.vfov)
     return dataclasses.replace(scene, meta=dataclasses.replace(scene.meta, camera=new))
 
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread, then restore the count. The
+    gradient tests take thousands of small ops a bounce; with several pytest
+    workers each spinning torch's full thread pool on them, the pools
+    contend and a test runs tens of times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

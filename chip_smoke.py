@@ -87,12 +87,35 @@ line and any failure raises, so the exit code is non-zero:
       one pass of GRAD_AB_PATHS paths under "ad" and "replay", each timed
       with its peak memory.
 
+  parallel (cbox at the cbox cell's settings; several devices, processes
+  and the utilities, through K1/K2 alone in every phase):
+  17. sharded: render_image_sharded over [cuda:0] * 2 (two shards on the
+      card, 2 samples a pass), against the cbox image: each pixel within
+      SUM_REL of it (the same samples summed in another grouping) and the
+      means within MEAN_REL, timed in turns with render_image; over
+      [cuda:0] bit for bit the cbox image;
+  18. multihost: render_image_multihost at one NCCL rank in this process,
+      bit for bit the cbox image, then at two gloo ranks on the card (two
+      processes started with spawn), whose frames must equal each other
+      and phase 17's two-way image bit for bit; each rank's pass and
+      assemble seconds;
+  19. banded: banded_loss_grad (4 bands) on the grad cell's step-0 scene
+      (1024x1024, 4 spp, d4, seed 11) at one rank and at the two gloo
+      ranks, against render_loss_grad (loss within 1e-5, every table
+      within rtol 2e-4, atol 1e-6: tests/test_overlap.py's), timed in turns
+      with it, with peak memory;
+  20. checkpoint: render_image_resumable stopped one pass after its first
+      checkpoint and resumed, bit for bit the cbox image; an uninterrupted
+      checkpointed render timed in turns with render_image;
+  21. entry: entry.dryrun_multichip(2) over [cuda:0] * 2 and entry()'s step.
+
 It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
 and bounds in cbox, mis and ibl, and their launches in mis and ibl; K4 and
 K5 their counted work, per-pass times and bounds, launches and the render
 time under FORCE_CLUSTER; K6 the same under FORCE_SWEEP; K1 and K2 their
-launches in one gradient step, `launches_grad_step`) and, last, the
+launches in one gradient step, `launches_grad_step`, and in each phase of
+the parallel cell, `launches_parallel`) and, last, the
 device JSON line. It fails without a CUDA device, and when run outside a
 checkout of the repo.
 """
@@ -133,6 +156,13 @@ GRAD_SMALL, GRAD_AB_PATHS = 64, 1 << 18
 GRAD_TABLE_TOL = 1e-3  # per-table gradients, kernels vs twins, of the table's largest magnitude
 GRAD_REPLAY_TOL = 1e-5  # replay vs AD, of max(the table's largest magnitude, 1)
 GRAD_FD_RTOL = 0.03  # the red wall's albedo gradient vs central FD (tests/test_grad.py's rtol)
+# the parallel cell: the banded gradient's bands and tolerances (tests/test_overlap.py's),
+# the checkpointed render's passes between checkpoints, the gloo ranks' time limit
+BANDS, BANDED_LOSS_RTOL, BANDED_RTOL, BANDED_ATOL = 4, 1e-5, 2e-4, 1e-6
+CKPT_EVERY, RANK_TIMEOUT = 4, 600
+# a pixel regrouped from k = 1 to k = 2 sums the same 16 nonnegative float32
+# samples in another order: within 15 roundings, 15 x 2^-24 = 9e-7 of the pixel
+SUM_REL = 1e-5
 SOURCES = ("brute", "traverse", "cluster", "sweep")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
@@ -681,6 +711,13 @@ def time_call(torch, fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def kernels_only(launches, want, what):
+    """Raise unless the kernels in `want` were launched and nothing else ran."""
+    if any(launches[k] == 0 for k in want) or any(v for k, v in launches.items() if k not in want):
+        raise RuntimeError(f"{what} did not run on {want} alone: {launches}")
+    return {k: launches[k] for k in want}
+
+
 def render_counted(torch, _launch, render_image, scene, options, want, what):
     """Render with every launch count set to 0 just before; the counts read
     just after must be > 0 for the kernels in `want` and 0 for all others."""
@@ -688,12 +725,10 @@ def render_counted(torch, _launch, render_image, scene, options, want, what):
     _launch.reset_launches()
     img = render_image(scene, options)
     torch.cuda.synchronize()
-    launches = dict(_launch.LAUNCHES)
-    if any(launches[k] == 0 for k in want) or any(v for k, v in launches.items() if k not in want):
-        raise RuntimeError(f"{what} did not run on {want} alone: {launches}")
+    launches = kernels_only(dict(_launch.LAUNCHES), want, what)
     if not np.isfinite(img).all():
         raise RuntimeError(f"{what}: the image is not finite")
-    return img, {k: launches[k] for k in want}
+    return img, launches
 
 
 def mean_rel(img, ref):
@@ -1469,9 +1504,8 @@ def grad_cell(torch, dev, out_dir, mis_img, mis_dt):
     phase("grad", f"mis_replay {RES}x{RES} {SPP} spp d{MAX_DEPTH} through K1/K2 alone ({launches}): equal to the "
           f"mis image bit for bit; {dt:.4f} s = {mrays:.3f} Mrays/s (the scan loop {mis_dt:.4f} s)")
 
-    attr = scene.materials.attr.cpu().numpy()
-    red = int(np.argmin(np.abs(attr[:, 7:10] - np.array([0.63, 0.065, 0.05])).sum(axis=1)))
-    true_rgb = attr[red, 7:10].astype(np.float64)
+    red = red_material(scene)
+    true_rgb = scene.materials.attr[red, 7:10].cpu().numpy().astype(np.float64)
     grad_parity(torch, scene, red)
 
     n = RES * RES
@@ -1511,11 +1545,7 @@ def grad_cell(torch, dev, out_dir, mis_img, mis_dt):
         grad.backward(s, g)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        launches = dict(_launch.LAUNCHES)
-        if not (launches["closest"] and launches["anyhit"]) or any(
-                v for k, v in launches.items() if k not in ("closest", "anyhit")):
-            raise RuntimeError(f"gradient step {step} did not run on K1/K2 alone: {launches}")
-        step_launches = {k: launches[k] for k in ("closest", "anyhit")}
+        step_launches = kernels_only(dict(_launch.LAUNCHES), ("closest", "anyhit"), f"gradient step {step}")
         bad = [k for k, v in float_tables(g).items() if not torch.isfinite(v).all()]
         if bad or not (torch.isfinite(wall.grad).all() and torch.isfinite(log_light.grad)):
             raise RuntimeError(f"gradient step {step}: non-finite gradients in {bad or 'the parameters'}")
@@ -1550,6 +1580,320 @@ def grad_cell(torch, dev, out_dir, mis_img, mis_dt):
     return step_launches
 
 
+def red_material(scene):
+    """The index of cbox's red wall material (its reflectance 0.63, 0.065, 0.05)."""
+    attr = scene.materials.attr.cpu().numpy()
+    return int(np.argmin(np.abs(attr[:, 7:10] - np.array([0.63, 0.065, 0.05])).sum(axis=1)))
+
+
+def step0_scene(torch, scene, red):
+    """The grad cell's scene at its step-0 parameters: gray red wall
+    (sigmoid(logit 0.5)) and half the light (exp(log 0.5))."""
+    from take_tpu_torch.scene import edit
+
+    dev = scene.background.device
+    s = edit.with_material_reflectance(scene, red, torch.sigmoid(torch.zeros(3, dtype=torch.float32, device=dev)))
+    return edit.with_light_intensity_scale(s, torch.exp(torch.tensor(np.log(0.5), dtype=torch.float32, device=dev)))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_main(rank, n_ranks, port, work, device, res):
+    """One rank of phases 18 and 19's gloo group, in a process of its own
+    (started with spawn): the cbox frame through render_image_multihost
+    (a first call warms up, the second is kept with its stats), then the
+    banded gradient on the grad cell's step-0 scene against the target in
+    `work` (the same: the second call is kept); writes work/rank<r>.npz."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.parallel import distributed, overlap
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    distributed.init_distributed(f"localhost:{port}", n_ranks, rank, backend="gloo")
+    try:
+        dev = distributed.local_device() if device == "cuda" else torch.device(device)
+        scene = with_res(parse_scene_file(str(SCENE), device=dev), res)
+        options = RenderOptions(spp=SPP, max_depth=MAX_DEPTH, seed=SEED)
+        distributed.render_image_multihost(scene, options)
+        stats = {}
+        _launch.reset_launches()
+        img = distributed.render_image_multihost(scene, options, stats=stats)
+        launches = dict(_launch.LAUNCHES)
+        s0 = step0_scene(torch, scene, red_material(scene))
+        target = torch.as_tensor(np.load(Path(work) / "target.npy"), device=dev)
+        pix = torch.arange(res * res, dtype=torch.int32, device=dev)
+        opts = RenderOptions(spp=GRAD_SPP, max_depth=MAX_DEPTH, seed=GRAD_SEED, grad_mode="auto")
+        banded_s = []
+        for _ in range(2):  # the second call is kept
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            _launch.reset_launches()
+            t0 = time.perf_counter()
+            loss, g = overlap.banded_loss_grad(s0, opts, pix, target, BANDS, n_samples=GRAD_SPP)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            banded_s.append(time.perf_counter() - t0)
+        grads = {f"grad/{k}": v.cpu().numpy() for k, v in float_tables(g).items()}
+        np.savez(Path(work) / f"rank{rank}.npz", img=img, loss=float(loss), banded_s=banded_s,
+                 info=json.dumps({"stats": stats, "launches": launches, "launches_banded": dict(_launch.LAUNCHES)}),
+                 **grads)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(n_ranks, work, device, res):
+    """Start n_ranks processes of rank_main (spawn: CUDA does not survive
+    fork), wait for them, and return their results; a rank that fails or
+    hangs fails the phase (its output is on this script's)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=rank_main, args=(r, n_ranks, port, str(work), device, res)) for r in range(n_ranks)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * n_ranks:
+        raise RuntimeError(f"the gloo ranks exited with {codes} (None: killed after {RANK_TIMEOUT} s)")
+    out = []
+    for r in range(n_ranks):
+        with np.load(Path(work) / f"rank{r}.npz") as z:
+            out.append({k: z[k] for k in z.files})
+        out[-1]["info"] = json.loads(str(out[-1]["info"]))
+    return out
+
+
+def grads_allclose(label, got, want):
+    """Every float table of `got` ({key: numpy}) against `want` (a gradient
+    Scene): tests/test_overlap.py's rtol 2e-4, atol 1e-6. Returns the
+    largest error over each table's scale."""
+    from take_tpu_torch.scene.types import float_tables
+
+    worst = 0.0
+    for key, w in float_tables(want).items():
+        w = w.cpu().numpy()
+        g = got[key]
+        if not np.isfinite(g).all():
+            raise RuntimeError(f"{label}: {key} has a non-finite gradient")
+        np.testing.assert_allclose(g, w, rtol=BANDED_RTOL, atol=BANDED_ATOL, err_msg=f"{label}: {key}")
+        scale = float(np.abs(w).max())
+        if scale > 0:
+            worst = max(worst, float(np.abs(g - w).max()) / scale)
+    return worst
+
+
+def checkpoint_phase(torch, scene, options, out_dir, cbox_img, smi):
+    """Phase 20: render_image_resumable stopped one pass after its first
+    checkpoint and resumed, bit for bit `cbox_img`; an uninterrupted
+    checkpointed render timed in turns with render_image. Returns the launches of
+    the stopped and resumed render."""
+    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.utils import checkpoint
+
+    path = out_dir / "cbox_1024.ckpt"
+    path.unlink(missing_ok=True)
+
+    class Stop(Exception):
+        pass
+
+    def stop(s, spp):
+        if s > CKPT_EVERY:  # one pass past the first checkpoint
+            raise Stop
+
+    _launch.reset_launches()
+    try:
+        checkpoint.render_image_resumable(scene, options, str(path), CKPT_EVERY, progress=stop)
+        raise RuntimeError("the checkpointed render was not stopped")
+    except Stop:
+        pass
+    spp_done = checkpoint.load_accumulator(str(path))[1]
+    img_c = checkpoint.render_image_resumable(scene, options, str(path), CKPT_EVERY)
+    torch.cuda.synchronize()
+    launches = kernels_only(dict(_launch.LAUNCHES), ("closest", "anyhit"), "the stopped and resumed render")
+    complete = checkpoint.load_accumulator(str(path))[3]
+
+    def fresh(scene, options):
+        path.unlink(missing_ok=True)
+        return checkpoint.render_image_resumable(scene, options, str(path), CKPT_EVERY)
+
+    secs = in_turns(torch, {"render_image": render_image, "checkpointed": fresh}, scene, options)
+    phase("parallel", f"checkpoint: {RES}x{RES} {SPP} spp d{MAX_DEPTH} stopped at sample {CKPT_EVERY + 1} (the "
+          f"checkpoint holds {spp_done}), resumed: equal to render_image's image bit for bit "
+          f"{np.array_equal(img_c, cbox_img)}, last checkpoint {complete}, launches {launches}; "
+          f"uninterrupted with a checkpoint every {CKPT_EVERY} passes, s a render in turns {secs}; "
+          f"card: {smi}")
+    if spp_done != CKPT_EVERY or complete != {"complete": True} or not np.array_equal(img_c, cbox_img):
+        raise RuntimeError("the resumed render differs from render_image's")
+    return launches
+
+
+def in_turns(torch, fns, scene, options):
+    """{name: [seconds, seconds]} of two renderers timed in turns (a, b, b, a)."""
+    (a, fa), (b, fb) = fns.items()
+    secs = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        secs[name].append(timed_render(torch, fn, scene, options)[0])
+    return secs
+
+
+def parallel_cell(torch, dev, out_dir, cbox_img, smi):
+    """parallel: the sharded render (two shards on the card, then one),
+    render_image_multihost at one NCCL rank in process and at two gloo
+    ranks on the card, the banded gradient at one and two ranks against
+    render_loss_grad, a checkpointed render stopped and resumed, and the
+    entry point's dry run. Returns K1/K2's launches in each phase."""
+    import functools
+
+    import torch.distributed as dist
+
+    from take_tpu_torch import entry, grad
+    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.parallel import distributed, overlap, sharding
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    want = ("closest", "anyhit")
+    scene = with_res(parse_scene_file(str(SCENE), device=dev), RES)
+    options = RenderOptions(spp=SPP, max_depth=MAX_DEPTH, seed=SEED)
+    out = {}
+
+    # 17. sharded: two shards on the card (k = 2), then one (k = 1)
+    two = functools.partial(sharding.render_image_sharded, mesh=[dev, dev])
+    img2, out["sharded"] = render_counted(torch, _launch, two, scene, options, want, "two-way sharded render")
+    rel = float((np.abs(img2 - cbox_img) / np.maximum(np.abs(cbox_img), np.finfo(np.float32).tiny)).max())
+    mrel, m2 = mean_rel(img2, cbox_img)
+    secs = in_turns(torch, {"render_image": render_image, "sharded": two}, scene, options)
+    one = functools.partial(sharding.render_image_sharded, mesh=[dev])
+    img1, _ = render_counted(torch, _launch, one, scene, options, want, "one-way sharded render")
+    phase("parallel", f"sharded {RES}x{RES} {SPP} spp d{MAX_DEPTH} over [{dev}] * 2 (k 2) through K1/K2 alone "
+          f"({out['sharded']}): largest per-pixel difference from the render_image image {rel:.3e} of the pixel "
+          f"(limit {SUM_REL}), means {m2.tolist()} vs {cbox_img.mean(axis=(0, 1)).tolist()} (max rel {mrel:.3e}, "
+          f"limit {MEAN_REL}); s a render in turns {secs}; over [{dev}] (k 1) equal bit "
+          f"for bit: {np.array_equal(img1, cbox_img)}; card: {smi}")
+    if rel > SUM_REL or mrel > MEAN_REL:
+        raise RuntimeError("the two-way sharded image disagrees with render_image's")
+    if not np.array_equal(img1, cbox_img):
+        raise RuntimeError("the one-way sharded image differs from render_image's")
+
+    # 18. multihost: one NCCL rank in this process, then two gloo ranks on the card
+    work = out_dir / "ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    for f in work.glob("rank*.npz"):
+        f.unlink()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        stats0, stats1 = {}, {}
+        distributed.render_image_multihost(scene, options, stats=stats0)  # NCCL sets up its communicator
+        multi = functools.partial(distributed.render_image_multihost, stats=stats1)
+        img_n, out["multihost_nccl"] = render_counted(torch, _launch, multi, scene, options, want,
+                                                      "one-rank NCCL render")
+    finally:
+        dist.destroy_process_group()
+    if not np.array_equal(img_n, cbox_img):
+        raise RuntimeError("the one-rank NCCL frame differs from render_image's")
+    red = red_material(scene)
+    t_img = render_image(scene, RenderOptions(spp=GRAD_TARGET_SPP, max_depth=MAX_DEPTH, seed=3))
+    np.save(work / "target.npy", np.ascontiguousarray(t_img[::-1]).reshape(-1, 3))  # rows back to y order
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, work, DEVICE, RES)
+    t_ranks = time.perf_counter() - t0
+    for r, z in enumerate(ranks):
+        out[f"multihost_gloo_rank{r}"] = kernels_only(z["info"]["launches"], want, f"gloo rank {r}'s render")
+    equal = [np.array_equal(z["img"], img2) for z in ranks]
+    phase("parallel", f"multihost {RES}x{RES} {SPP} spp d{MAX_DEPTH}: one NCCL rank equal to render_image's image "
+          f"bit for bit ({out['multihost_nccl']}; pass_seconds {stats1['pass_seconds']}, assemble_seconds "
+          f"{stats1['assemble_seconds']}; the first call's {stats0['assemble_seconds']}); two gloo ranks on one card (two processes, {t_ranks:.1f} s from start "
+          f"to exit): frames equal to each other {np.array_equal(ranks[0]['img'], ranks[1]['img'])} and to the "
+          f"two-way sharded image {equal}; per rank pass_seconds "
+          f"{[z['info']['stats']['pass_seconds'] for z in ranks]}, assemble_seconds "
+          f"{[z['info']['stats']['assemble_seconds'] for z in ranks]}, launches "
+          f"{[out[f'multihost_gloo_rank{r}'] for r in range(2)]}; card: {smi}")
+    if not (np.array_equal(ranks[0]["img"], ranks[1]["img"]) and all(equal)):
+        raise RuntimeError("the two gloo ranks' frames differ from each other or from the two-way sharded image")
+
+    # 19. banded gradient on the grad cell's step-0 scene, against render_loss_grad
+    s0 = step0_scene(torch, scene, red)
+    target = torch.as_tensor(np.load(work / "target.npy"), device=dev)
+    pix = torch.arange(RES * RES, dtype=torch.int32, device=dev)
+    opts = RenderOptions(spp=GRAD_SPP, max_depth=MAX_DEPTH, seed=GRAD_SEED, grad_mode="auto")
+    results, secs, peaks = {}, {"banded": [], "monolithic": []}, {}
+    for which in ("banded", "monolithic", "banded", "monolithic", "monolithic", "banded"):  # a first call of each, then in turns
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _launch.reset_launches()
+        t0 = time.perf_counter()
+        if which == "banded":
+            results[which] = overlap.banded_loss_grad(s0, opts, pix, target, BANDS, n_samples=GRAD_SPP)
+        else:
+            results[which] = grad.render_loss_grad(s0, opts, pix, target, GRAD_SPP)
+        torch.cuda.synchronize()
+        secs[which].append(time.perf_counter() - t0)
+        peaks[which] = max(peaks.get(which, 0), torch.cuda.max_memory_allocated())
+        out[which] = kernels_only(dict(_launch.LAUNCHES), want, f"the {which} gradient")
+    (loss_b, g_b), (loss_m, g_m) = results["banded"], results["monolithic"]
+    loss_rel = abs(float(loss_b) - float(loss_m)) / abs(float(loss_m))
+    err1 = grads_allclose("banded at one rank", {k: v.cpu().numpy() for k, v in float_tables(g_b).items()}, g_m)
+    errs2, loss2 = [], []
+    for r, z in enumerate(ranks):
+        out[f"banded_gloo_rank{r}"] = kernels_only(z["info"]["launches_banded"], want, f"gloo rank {r}'s gradient")
+        errs2.append(grads_allclose(f"banded at two ranks (rank {r})",
+                                    {k[5:]: v for k, v in z.items() if k.startswith("grad/")}, g_m))
+        loss2.append(abs(float(z["loss"]) - float(loss_m)) / abs(float(loss_m)))
+    mode_b = grad.resolve_mode(opts, RES * RES // BANDS * GRAD_SPP)
+    phase("parallel", f"banded gradient ({BANDS} bands, {mode_b} per band) at {RES}x{RES} {GRAD_SPP} spp "
+          f"d{MAX_DEPTH} on the grad cell's step-0 scene against render_loss_grad ({grad.resolve_mode(opts, RES * RES * GRAD_SPP)}): loss "
+          f"{float(loss_b):.6e} vs {float(loss_m):.6e} (rel {loss_rel:.3e}, limit {BANDED_LOSS_RTOL}), every table "
+          f"within rtol {BANDED_RTOL}, atol {BANDED_ATOL} (largest error {err1:.3e} of a table's scale); two gloo "
+          f"ranks: loss rel {loss2}, tables {errs2} of scale, s per rank (first, second call) "
+          f"{[z['banded_s'].tolist() for z in ranks]}; "
+          f"s per gradient, in order banded, monolithic (first calls) {secs['banded'][0]:.4f}, "
+          f"{secs['monolithic'][0]:.4f}, then banded, monolithic, monolithic, banded {secs['banded'][1]:.4f}, "
+          f"{secs['monolithic'][1]:.4f}, {secs['monolithic'][2]:.4f}, {secs['banded'][2]:.4f}; peak memory banded "
+          f"{peaks['banded'] / 2**30:.3f} GiB, monolithic {peaks['monolithic'] / 2**30:.3f} GiB; launches banded "
+          f"{out['banded']}, monolithic {out['monolithic']}, gloo ranks "
+          f"{[out[f'banded_gloo_rank{r}'] for r in range(2)]}; card: {smi}")
+    if max([loss_rel] + loss2) > BANDED_LOSS_RTOL:
+        raise RuntimeError("the banded loss disagrees with render_loss_grad's")
+
+    out["resumable"] = checkpoint_phase(torch, scene, options, out_dir, cbox_img, smi)
+
+    # 21. entry: the dry run over two shards on the card, and entry()'s step
+    _launch.reset_launches()
+    t0 = time.perf_counter()
+    losses = entry.dryrun_multichip(2)
+    fn, args = entry.entry()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    dt_e = time.perf_counter() - t0
+    out["entry"] = kernels_only(dict(_launch.LAUNCHES), want, "the entry point")
+    phase("parallel", f"entry: dryrun_multichip(2) over [{dev}] * 2 {losses}; entry() fn -> {tuple(y.shape)}, "
+          f"finite {bool(torch.isfinite(y).all())}; {dt_e:.3f} s; launches {out['entry']}; card: {smi}")
+    if tuple(y.shape) != (1024, 3) or not bool(torch.isfinite(y).all()):
+        raise RuntimeError("entry()'s step is not a finite [1024, 3] radiance")
+    return out
+
+
 def main():
     import torch
 
@@ -1581,8 +1925,11 @@ def main():
     launches_grad = grad_cell(torch, dev, out_dir, cbox_img, cbox_dt)
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_grad_step=launches_grad[entry["name"]])
+    launches_par = parallel_cell(torch, dev, out_dir, cbox_img, smi)
+    for entry in kernels[:2]:  # K1, K2
+        entry.update(launches_parallel={k: v[entry["name"]] for k, v in launches_par.items()})
     phase("times", f"launches per default render: cbox {launches}, room {launches_room}, mis {launches_mis}, "
-          f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}")
+          f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}; parallel {launches_par}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -88,6 +88,28 @@ def _passes(options: RenderOptions, P: int, n_samples: int):
     return [slice(p0, min(p0 + per, P)) for p0 in range(0, P, per)]
 
 
+def partial_loss_grad(scene: Scene, options: RenderOptions, pixel_idx, target, n_samples: int, mode: str,
+                      denom: int, sample0: int = 0):
+    """sum((img - target)^2) / denom over a pixel batch, and its gradient
+    with respect to every float table of the scene, in passes of at most
+    options.max_rays_per_pass paths, each pass's backward adding into the
+    same fresh leaf tables, under the given mode ("ad" or "replay"). The
+    part of a loss over more pixels (denom = 3 x their number) that a
+    shard or a band computes (parallel/sharding.py, parallel/overlap.py).
+
+    Returns:
+        (loss, grads): a 0-d tensor and a Scene-shaped gradient.
+    """
+    s, leaves = _leaves(scene)
+    loss = torch.zeros((), dtype=torch.float32, device=scene.background.device)
+    for sl in _passes(options, pixel_idx.shape[0], n_samples):
+        img = _radiance(s, options, pixel_idx[sl], int(sample0), n_samples, mode)
+        part = torch.sum((img - target[sl]) ** 2) / denom
+        part.backward()
+        loss = loss + part.detach()
+    return loss, _grad_scene(scene, leaves)
+
+
 def render_loss_grad(scene: Scene, options: RenderOptions, pixel_idx, target, n_samples: int, sample0: int = 0):
     """L2 image loss mean((img - target)^2) and its gradient with respect to
     every float table of the scene: the inverse-rendering primitive.
@@ -101,16 +123,8 @@ def render_loss_grad(scene: Scene, options: RenderOptions, pixel_idx, target, n_
     Returns:
         (loss, grads): a 0-d tensor and a Scene-shaped gradient.
     """
-    P = pixel_idx.shape[0]
-    mode = resolve_mode(options, P * n_samples)
-    s, leaves = _leaves(scene)
-    loss = torch.zeros((), dtype=torch.float32, device=scene.background.device)
-    for sl in _passes(options, P, n_samples):
-        img = _radiance(s, options, pixel_idx[sl], int(sample0), n_samples, mode)
-        part = torch.sum((img - target[sl]) ** 2) / target.numel()
-        part.backward()
-        loss = loss + part.detach()
-    return loss, _grad_scene(scene, leaves)
+    mode = resolve_mode(options, pixel_idx.shape[0] * n_samples)
+    return partial_loss_grad(scene, options, pixel_idx, target, n_samples, mode, target.numel(), sample0)
 
 
 def param_grads(scene: Scene, options: RenderOptions, pixel_idx, cotangent, n_samples: int = 1):

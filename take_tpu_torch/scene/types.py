@@ -417,3 +417,26 @@ def scene_from_numpy(tables: dict, meta: SceneMeta, device) -> Scene:
     if tables:
         raise KeyError(f"unknown scene tables: {sorted(tables)}")
     return Scene(background=background, envmap=envmap, bvh=bvh, meta=meta, **groups)
+
+
+def scene_to(scene: Scene, device) -> Scene:
+    """The scene with every table on `device`, the derived layouts
+    (`geometry.tri_rows`, `bvh.nodes/tris/qnodes`) too; HOST_TABLES stay on
+    the CPU, and where `tri_rows` is `bvh.tris` (BVH scenes) the copy keeps
+    them one tensor. `bvh.depth` and `meta` carry over. A table already on
+    `device` is not copied. The torch form of take_tpu's shard_scene, which
+    replicates the scene onto every device of a mesh."""
+    device = torch.device(device)
+
+    def move(prefix, group):
+        new = {}
+        for f in dataclasses.fields(group):
+            x = getattr(group, f.name)
+            if torch.is_tensor(x) and f"{prefix}.{f.name}" not in HOST_TABLES:
+                new[f.name] = x.to(device)
+        return dataclasses.replace(group, **new)
+
+    groups = {p: move(p, getattr(scene, p)) for p in _GROUPS if getattr(scene, p) is not None}
+    if scene.bvh is not None and scene.geometry.tri_rows is scene.bvh.tris:
+        groups["geometry"].tri_rows = groups["bvh"].tris
+    return dataclasses.replace(scene, background=scene.background.to(device), **groups)

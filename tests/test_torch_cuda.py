@@ -716,3 +716,61 @@ def test_mis_replay_image_equals_mis_on_card(card):
     a = render_image(scene, RenderOptions(spp=4, max_depth=4))
     b = render_image(scene, RenderOptions(spp=4, max_depth=4, integrator="mis_replay"))
     assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_and_resumable_images_on_card(card, tmp_path):
+    """cbox.xml at 64x64, 4 spp, d4 (k saturated at spp): the sharded render
+    over make_mesh() and over two shards of the card, and a checkpointed
+    render stopped after its first checkpoint (1 sample a pass) and resumed,
+    each bit for bit render_image's; K1/K2 alone."""
+    from take_tpu_torch.parallel.sharding import make_mesh, render_image_sharded
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.types import RenderOptions
+    from take_tpu_torch.utils.checkpoint import load_accumulator, render_image_resumable
+
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 64)
+    opts = RenderOptions(spp=4, max_depth=4)
+    ref = render_image(scene, opts)
+    _launch.reset_launches()
+    for mesh in (make_mesh(), ["cuda:0"] * 2):
+        assert np.array_equal(render_image_sharded(scene, opts, mesh), ref)
+    one = dataclasses.replace(opts, max_rays_per_pass=64 * 64)
+    path = str(tmp_path / "c.ckpt")
+
+    class Stop(Exception):
+        pass
+
+    def stop(s, spp):
+        if s > 2:
+            raise Stop
+
+    with pytest.raises(Stop):
+        render_image_resumable(scene, one, path, checkpoint_every=2, progress=stop)
+    assert load_accumulator(path)[1] == 2
+    assert np.array_equal(render_image_resumable(scene, one, path, checkpoint_every=2), render_image(scene, one))
+    assert {k for k, v in _launch.LAUNCHES.items() if v} == {"closest", "anyhit"}
+
+
+@pytest.mark.cuda
+def test_banded_grad_matches_monolithic_on_card(card):
+    """cbox.xml at 32x32 (4 samples a pixel, d4) through K1/K2: the banded
+    gradient at world size 1 (4 bands) and the sharded one over two shards
+    of the card against render_loss_grad (tests/test_overlap.py's rtol 2e-4,
+    atol 1e-6)."""
+    from take_tpu_torch.grad import render_loss_grad
+    from take_tpu_torch.parallel.overlap import banded_loss_grad
+    from take_tpu_torch.parallel.sharding import sharded_loss_grad
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 32)
+    opts = RenderOptions(spp=1, max_depth=4)
+    pix = torch.arange(32 * 32, dtype=torch.int32, device="cuda")
+    target = torch.full((32 * 32, 3), 0.2, device="cuda")
+    loss, g = render_loss_grad(scene, opts, pix, target, 4)
+    assert float_tables(g)["materials.attr"].abs().max() > 0
+    for loss_x, g_x in (banded_loss_grad(scene, opts, pix, target, 4, n_samples=4),
+                        sharded_loss_grad(scene, opts, pix, target, 4, ["cuda:0"] * 2)):
+        torch.testing.assert_close(loss_x, loss, rtol=1e-5, atol=0)
+        for key, a in float_tables(g).items():
+            torch.testing.assert_close(float_tables(g_x)[key], a, rtol=2e-4, atol=1e-6, msg=key)

@@ -118,7 +118,13 @@ def test_envmap_scene_raises(tmp_path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, take_tpu_torch, take_tpu_torch.cli, take_tpu_torch.scene.parse_xml; "
+    """Every module of take_tpu_torch imports neither JAX nor take_tpu."""
+    code = ("import importlib, pkgutil, sys, take_tpu_torch; "
+            "names = [m.name for m in pkgutil.walk_packages(take_tpu_torch.__path__, 'take_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert {'take_tpu_torch.cli', 'take_tpu_torch.entry', 'take_tpu_torch.parallel.sharding', "
+            "'take_tpu_torch.parallel.distributed', 'take_tpu_torch.parallel.overlap', "
+            "'take_tpu_torch.utils.checkpoint', 'take_tpu_torch.utils.metrics'} <= set(names), names; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'take_tpu')); "
             "assert not bad, bad")
     root = os.path.join(os.path.dirname(__file__), "..")

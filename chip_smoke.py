@@ -53,6 +53,14 @@ line and any failure raises, so the exit code is non-zero:
       against it, and at 64x64 through K3 against the plain twins; times of
       both loops with their active_fraction, and K3 on the captured batches
       of one pass;
+  reference (the published specs against take_tpu's own TPU renders of them,
+  benchmarks/out/*.exr, by take_tpu_torch/run_configs.py's pixel_agreement
+  and gates):
+      the mis and textured images of 10 and 11, and new renders of cbox at
+      256x256, 16 spp, d4 and of room at 1920x1080, 64 spp, d6 through the
+      kernels alone, each rounded to half floats as its EXR would hold it:
+      channel means within 1e-4 relative, at most the config's share of
+      pixels beyond 1e-3 x max(pixel, 1e-2); one line each, a miss raises;
   ibl (scenes/ibl/ibl.xml at its published 1024x1024 and max_depth 6, 64 of
   the published 256 spp; an environment map, Disney metal and composite,
   on the brute path, K1/K2):
@@ -146,6 +154,7 @@ MIS_SPP, MIS_DEPTH, MIS_SMALL = 128, 6, 128  # mis and textured at their publish
 TEX_SPP, TEX_DEPTH, TEX_SMALL = 64, 6, 128  # 512x512, spp and depth
 TEX_TWIN = 64  # the resolution of textured's kernel-vs-twin render
 IBL_SPP, IBL_DEPTH, IBL_SMALL = 64, 6, 128  # ibl at its published 1024x1024 and d6; spp cut from 256
+REF_ROOM_SPP = 64  # room's reference render, held against take_tpu's room_1080p_64spp.exr
 # the closed-form azimuth environment of tests/test_ibl_analytic.py: (spp, rtol) per integrator
 AZIMUTH = {"mis": (512, 0.02), "one_sample_mis": (512, 0.04), "raw": (1024, 0.08)}
 # the grad cell: an inverse-rendering loop on cbox at 1024x1024 (4 spp, d4,
@@ -936,7 +945,8 @@ def room_cell(torch, dev, out_dir):
     """room: build, K3/K4/K5/K6 parity, the 1920x1080 renders through K3
     alone, through K6 (FORCE_SWEEP) with K3's any hit and through K4/K5
     (FORCE_CLUSTER), the 192x108 four-way check, times, and the captured
-    batches of one pass of K3 and of K4/K5. Returns the kernels' entries."""
+    batches of one pass of K3 and of K4/K5. Returns the kernels' entries,
+    the render's launches and the room scene."""
     from take_tpu_torch.geometry import _launch, cluster, packet, sweep, traverse
     from take_tpu_torch.geometry import bvh as bvh_build
     from take_tpu_torch.scene.types import scene_from_numpy
@@ -1117,14 +1127,14 @@ def room_cell(torch, dev, out_dir):
                                room_pass_ms=passes6[kind][0], room_pass_bound_ms=passes6[kind][1],
                                room_pass_work_per_live_ray=dict(zip(names, pass_work6[kind])),
                                force_sweep_render_s=dt_sweep)
-    return entries, launches_room
+    return entries, launches_room, room
 
 
 def mis_cell(torch, dev, out_dir):
     """mis (blinn_microfacet plates, sphere lights; the brute path): the
     published 512x512, 128 spp, d6 render through K1/K2 alone, the 128x128
     kernels-vs-twins check, times, and K1/K2 on the batches of one pass.
-    Returns (launches, per-pass sums of brute_captured)."""
+    Returns (launches, per-pass sums of brute_captured, the image)."""
     from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image
@@ -1160,14 +1170,15 @@ def mis_cell(torch, dev, out_dir):
     phase("times", f"mis render {dt:.4f} s = {mrays:.3f} Mrays/s; active_fraction {af:.6f} (1 spp)")
     passes = brute_captured(torch, brute, scene, capture_queries(torch, scene, options),
                             f"mis {cam.width}x{cam.height} d{MIS_DEPTH}")
-    return launches, passes
+    return launches, passes, img
 
 
 def textured_cell(torch, dev, out_dir):
     """textured (an open BVH scene, image texture): the published 512x512,
     64 spp, d6 render with the default loop (the scan loop) through K3
     alone; a reduced-resolution check of the refill loop against it; the
-    K3-vs-twins check; times of both loops."""
+    K3-vs-twins check; times of both loops. Returns the launches and the
+    image."""
     from take_tpu_torch.geometry import _launch, packet
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.render import render_image, use_wavefront_policy
@@ -1215,7 +1226,7 @@ def textured_cell(torch, dev, out_dir):
           f"Mrays/s, active_fraction {wavefront_active_fraction(torch, scene, refill):.6f} (one pass)")
     calls = capture_queries(torch, scene, options)
     captured_times(torch, packet, scene.bvh, calls, f"textured {cam.width}x{cam.height} d{TEX_DEPTH}")
-    return launches
+    return launches, img
 
 
 def azimuth_env_scene(dev, rho=0.6, w=32, h=16, seed=5):
@@ -1359,6 +1370,44 @@ def ibl_cell(torch, dev, out_dir):
     passes = brute_captured(torch, brute, scene, capture_queries(torch, scene, options),
                             f"ibl {cam.width}x{cam.height} d{IBL_DEPTH}")
     return launches, passes
+
+
+def reference_phase(torch, dev, mis_img, tex_img, room):
+    """The card's images at published specs against take_tpu's TPU renders
+    of the same spec (benchmarks/out/*.exr), by run_configs' pixel_agreement
+    and gates (each image rounded to half floats, as its EXR would hold it):
+    the mis and textured cells' images, and new renders of cbox at 256x256,
+    16 spp, d4 and of room at 1920x1080, REF_ROOM_SPP spp, d6, through the
+    kernels alone. One line each; any miss raises."""
+    from take_tpu_torch import run_configs
+    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions
+
+    cbox = with_res(parse_scene_file(str(SCENE), device=dev), 256)
+    cbox_img, _ = render_counted(torch, _launch, render_image, cbox, RenderOptions(spp=16, max_depth=4, seed=SEED),
+                                 ("closest", "anyhit"), "cbox 256x256 reference render")
+    t0 = time.perf_counter()
+    room_img, _ = render_counted(torch, _launch, render_image, room,
+                                 RenderOptions(spp=REF_ROOM_SPP, max_depth=ROOM_DEPTH, seed=SEED),
+                                 ("packet_closest", "packet_anyhit"), "room reference render")
+    t_room = time.perf_counter() - t0
+    misses = []
+    for name, img in (("cbox_256_16spp", cbox_img), ("mis_512_128spp", mis_img),
+                      ("textured_512_64spp", tex_img), (f"room_1080p_{REF_ROOM_SPP}spp", room_img)):
+        path = run_configs.TAKE_TPU_OUT / f"{name}.exr"
+        agreement = run_configs.pixel_agreement(img.astype(np.float16), run_configs.read_reference(path, img.shape))
+        miss = run_configs.agreement_misses(name, agreement)
+        phase("reference", f"{name} on the card vs {path.relative_to(ROOT)} (take_tpu's TPU render): channel means "
+              f"differ by {agreement['mean_rel']} (limit {run_configs.MEAN_REL}); {agreement['n_beyond']} of "
+              f"{agreement['n_pixels']} pixels ({agreement['share_beyond']:.4%}) beyond {run_configs.PIXEL_REL} x "
+              f"max(pixel, {run_configs.PIXEL_FLOOR}) (limit {run_configs.share_limit(name):.2%}); largest "
+              f"difference {agreement['max_abs']:.4e} at {agreement['max_abs_pixel']}"
+              + (f"; room rendered in {t_room:.2f} s" if name.startswith("room") else ""))
+        misses += miss
+    if misses:
+        raise RuntimeError("the card's images disagree with take_tpu's: " + "; ".join(misses))
 
 
 def table_grads_close(torch, label, got, want, tol, floor=0.0):
@@ -1911,13 +1960,15 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
 
     kernels, launches, cbox_img, cbox_dt = cbox_cell(torch, dev, out_dir)
-    room_kernels, launches_room = room_cell(torch, dev, out_dir)
+    room_kernels, launches_room, room = room_cell(torch, dev, out_dir)
     kernels += room_kernels
-    launches_mis, passes_mis = mis_cell(torch, dev, out_dir)
+    launches_mis, passes_mis, mis_img = mis_cell(torch, dev, out_dir)
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_mis=launches_mis[entry["name"]], mis_pass_ms=passes_mis[entry["name"]][0],
                      mis_pass_bound_ms=passes_mis[entry["name"]][1])
-    launches_tex = textured_cell(torch, dev, out_dir)
+    launches_tex, tex_img = textured_cell(torch, dev, out_dir)
+    reference_phase(torch, dev, mis_img, tex_img, room)
+    del room
     launches_ibl, passes_ibl = ibl_cell(torch, dev, out_dir)
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_ibl=launches_ibl[entry["name"]], ibl_pass_ms=passes_ibl[entry["name"]][0],

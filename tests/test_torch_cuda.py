@@ -6,6 +6,7 @@ JAX nor take_tpu, so they run where only PyTorch is installed:
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -774,3 +775,21 @@ def test_banded_grad_matches_monolithic_on_card(card):
         torch.testing.assert_close(loss_x, loss, rtol=1e-5, atol=0)
         for key, a in float_tables(g).items():
             torch.testing.assert_close(float_tables(g_x)[key], a, rtol=2e-4, atol=1e-6, msg=key)
+
+
+@pytest.mark.cuda
+def test_run_configs_cbox_meets_its_gates(card, tmp_path, capsys):
+    """`python -m take_tpu_torch.run_configs --only cbox` on the card: cbox at
+    its published 256x256, 16 spp, d4 through K1/K2, held against take_tpu's
+    TPU render benchmarks/out/cbox_256_16spp.exr by run_configs' gates
+    (channel means within 1e-4, at most 0.5% of pixels beyond 1e-3 x
+    max(pixel, 1e-2)); the EXR lands in the output directory."""
+    from take_tpu_torch import run_configs
+
+    _launch.reset_launches()
+    assert run_configs.main(["--only", "cbox", "--out", str(tmp_path)]) == 0
+    assert {k for k, v in _launch.LAUNCHES.items() if v} == {"closest", "anyhit"}
+    assert os.listdir(tmp_path) == ["cbox_256_16spp.exr"]
+    line = next(x for x in capsys.readouterr().out.splitlines() if x.startswith("cbox_256_16spp "))
+    agreement = json.loads(line.split(" ", 1)[1])["vs_take_tpu"]
+    assert agreement["n_pixels"] == 256 * 256 and run_configs.agreement_misses("cbox", agreement) == []

@@ -124,7 +124,8 @@ def test_import_leaves_jax_out():
             "[importlib.import_module(n) for n in names]; "
             "assert {'take_tpu_torch.cli', 'take_tpu_torch.entry', 'take_tpu_torch.parallel.sharding', "
             "'take_tpu_torch.parallel.distributed', 'take_tpu_torch.parallel.overlap', "
-            "'take_tpu_torch.utils.checkpoint', 'take_tpu_torch.utils.metrics'} <= set(names), names; "
+            "'take_tpu_torch.utils.checkpoint', 'take_tpu_torch.utils.metrics', 'take_tpu_torch.run_configs'} "
+            "<= set(names), names; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'take_tpu')); "
             "assert not bad, bad")
     root = os.path.join(os.path.dirname(__file__), "..")

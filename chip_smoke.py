@@ -117,13 +117,34 @@ line and any failure raises, so the exit code is non-zero:
       checkpointed render timed in turns with render_image;
   21. entry: entry.dryrun_multichip(2) over [cuda:0] * 2 and entry()'s step.
 
+  the repo's last measurement entry points (take_tpu_torch/bench.py,
+  room_grad_fd.py, inverse_demo.py; bench.py's flagship is phase 5):
+  22. bench: the refill loop over cbox at 1024x1024, 1 spp, max_depth 50,
+      with a wave of 2^14 lanes (active_fraction_d50_wavefront, iterations,
+      seconds), then the replay gradient of cbox at 1920x1080, 1 spp, d4, in
+      bands of 2^18 pixels (seconds, Mrays/s, finite), both through K1/K2
+      alone, and the soup check: K3, K4, K6 closest and K3, K5, K6 any hit
+      against brute.closest_plain's winner on 1024 rays into a 3000-triangle
+      soup with a BVH, each kernel launched once;
+  23. room grad: room_grad_fd's full band (2^16 pixels x 4 samples, d6,
+      seed 17) on the room cell's scene: the albedo of room's two materials
+      and the lights' emission scale, replay and AD against central FD
+      (< 0.05) and each other (< 1e-3), AD against take_tpu's recorded
+      gradients (within 1e-2, or the script raises), times and peak memory
+      by mode, K3 alone; then K3's launches in one gradient of each mode;
+  24. inverse: inverse_demo cut to INVERSE_STEPS Adam steps (64x64, 32 spp a
+      step, d4, a 512-spp target): the loss falls, every parameter moves
+      toward the truth, every gradient is finite, K1/K2 alone.
+
 It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
 and bounds in cbox, mis and ibl, and their launches in mis and ibl; K4 and
 K5 their counted work, per-pass times and bounds, launches and the render
 time under FORCE_CLUSTER; K6 the same under FORCE_SWEEP; K1 and K2 their
-launches in one gradient step, `launches_grad_step`, and in each phase of
-the parallel cell, `launches_parallel`) and, last, the
+launches in one gradient step, `launches_grad_step`, in each phase of
+the parallel cell, `launches_parallel`, and in one inverse demo step,
+`launches_inverse_step`; every kernel its launches in phase 22,
+`launches_bench`, and in phase 23, `launches_room_grad`) and, last, the
 device JSON line. It fails without a CUDA device, and when run outside a
 checkout of the repo.
 """
@@ -169,6 +190,7 @@ GRAD_FD_RTOL = 0.03  # the red wall's albedo gradient vs central FD (tests/test_
 # the checkpointed render's passes between checkpoints, the gloo ranks' time limit
 BANDS, BANDED_LOSS_RTOL, BANDED_RTOL, BANDED_ATOL = 4, 1e-5, 2e-4, 1e-6
 CKPT_EVERY, RANK_TIMEOUT = 4, 600
+INVERSE_STEPS = 100  # the inverse demo's Adam steps (its published 800 cut)
 # a pixel regrouped from k = 1 to k = 2 sums the same 16 nonnegative float32
 # samples in another order: within 15 roundings, 15 x 2^-24 = 9e-7 of the pixel
 SUM_REL = 1e-5
@@ -747,27 +769,11 @@ def mean_rel(img, ref):
 
 def active_fraction(torch, scene, options, spp):
     """Queries on live lanes over queries launched (trace_query_counts),
-    over `spp` samples of every pixel, in batches of <= 2^20 paths."""
-    from take_tpu_torch.core import rng as prng
-    from take_tpu_torch.core.camera import generate_rays
-    from take_tpu_torch.integrator.path_tracer import trace_query_counts
+    over `spp` samples of every pixel, in batches of <= 2^20 paths
+    (take_tpu_torch/bench.py's count)."""
+    from take_tpu_torch.bench import query_counts
 
-    cam = scene.meta.camera
-    dev = scene.background.device
-    nom = act = 0
-    with torch.inference_mode():
-        for s in range(spp):
-            for p0 in range(0, cam.width * cam.height, options.max_rays_per_pass):
-                pix = torch.arange(p0, min(p0 + options.max_rays_per_pass, cam.width * cam.height),
-                                   dtype=torch.int32, device=dev)
-                streams = prng.make_stream(options.seed, pix, torch.full_like(pix, s))
-                jx = prng.uniform(streams, prng.camera_counter(prng.DIM_CAMERA_JITTER_X))
-                jy = prng.uniform(streams, prng.camera_counter(prng.DIM_CAMERA_JITTER_Y))
-                px = (pix % cam.width).float()
-                py = torch.div(pix, cam.width, rounding_mode="floor").float()
-                ro, rd = generate_rays(cam, px, py, jx, jy)
-                n_, a_ = trace_query_counts(scene, options, ro, rd, streams)
-                nom, act = nom + n_, act + a_
+    nom, act = query_counts(scene, options, spp)
     return act / nom
 
 
@@ -1943,6 +1949,113 @@ def parallel_cell(torch, dev, out_dir, cbox_img, smi):
     return out
 
 
+KERNEL_KEYS = ("closest", "anyhit", "packet_closest", "packet_anyhit", "cluster_closest", "cluster_anyhit",
+               "sweep_closest", "sweep_anyhit")
+
+
+def bench_cell(torch, dev):
+    """22 bench: take_tpu_torch/bench.py's measurements beyond the flagship
+    (phase 5): the d50 refill fraction and the 1080p banded replay gradient
+    through K1/K2 alone, and the soup check of all six kernel routes.
+    Returns each kernel's launches in the phase."""
+    from take_tpu_torch import bench
+    from take_tpu_torch.geometry import _launch
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+
+    scene = with_res(parse_scene_file(str(SCENE), device=dev), RES)
+    runs = []
+    torch.cuda.synchronize()
+    _launch.reset_launches()
+    nom, act, dt = bench.wavefront_counts(scene)
+    got = kernels_only(dict(_launch.LAUNCHES), ("closest", "anyhit"), "the d50 refill loop")
+    iters = nom // (2 * bench.WAVE)
+    phase("bench", f"refill loop at {RES}x{RES}, 1 spp, d{bench.D50}, a wave of {bench.WAVE}: "
+          f"active_fraction_d50_wavefront {act / nom:.6f} ({act} of {nom} queries), {iters} iterations in "
+          f"{dt:.3f} s ({dt / iters * 1e3:.3f} ms an iteration, one host sync each); launches {got}")
+    runs.append(got)
+    _launch.reset_launches()
+    g = bench.banded_grad(scene)
+    torch.cuda.synchronize()
+    got = kernels_only(dict(_launch.LAUNCHES), ("closest", "anyhit"), "the 1080p banded gradient")
+    phase("bench", f"gradient at {bench.GRAD_SIZE[0]}x{bench.GRAD_SIZE[1]}, 1 spp, d{MAX_DEPTH}, replay, "
+          f"{g['bands']} bands of {bench.BAND} pixels after a warm-up band: {g['seconds']:.4f} s = "
+          f"{g['mrays']:.3f} Mrays/s (forward + replay), sum of squares {g['sumsq']:.6e}, finite {g['finite']}; "
+          f"launches with the warm-up band {got}")
+    if not g["finite"]:
+        raise RuntimeError("the 1080p gradient is not finite")
+    runs.append(got)
+    _launch.reset_launches()
+    ok, err = bench.kernels_check(dev)
+    torch.cuda.synchronize()
+    got = {k: _launch.LAUNCHES[k] for k in KERNEL_KEYS[2:]}
+    phase("bench", f"soup check ({bench.SOUP_TRI} triangles with a BVH, {bench.SOUP_RAYS} rays, tmax +inf): "
+          f"K3, K4, K6 closest and K3, K5, K6 any hit against brute.closest_plain's winner: ok {ok} {err}; "
+          f"launches {got}")
+    if not ok or any(v != 1 for v in got.values()):
+        raise RuntimeError(f"the soup check failed: {err or got}")
+    return {k: sum(r.get(k, 0) for r in runs + [got]) for k in KERNEL_KEYS}
+
+
+def room_grad_cell(torch, room):
+    """23 room grad: take_tpu_torch/room_grad_fd.py's full band on the room
+    cell's scene (2^16 pixels x 4 samples, d6, seed 17): its gates, and each
+    AD gradient against take_tpu's (raising past 1e-2), through K3 alone;
+    then K3's launches in one gradient of each mode. Returns
+    {"all": the run's launches, "replay": ..., "ad": ...} per kernel."""
+    from take_tpu_torch import room_grad_fd
+    from take_tpu_torch.geometry import _launch
+
+    rec, misses = room_grad_fd.run(room)
+    for which in room_grad_fd.params(room):
+        r = rec[which]
+        phase("room grad", f"{which}: AD {r['grad_ad']:.7f} (take_tpu's {room_grad_fd.TAKE_TPU_GRAD_AD[which]:.7f}, "
+              f"{r['vs_take_tpu_rel']:.3e} off, limit {room_grad_fd.TAKE_TPU_MAX}), replay {r['grad_replay']:.7f}, "
+              f"FD {r['fd']:.7f}; ad_vs_fd {r['ad_vs_fd_rel']:.3e} (limit {room_grad_fd.AD_FD_MAX}), replay_vs_ad "
+              f"{r['replay_vs_ad_rel']:.3e} (limit {room_grad_fd.REPLAY_AD_MAX}); replay {r['t_replay_s']:.4f} s "
+              f"at {r['peak_replay_gib']:.3f} GiB, AD {r['t_ad_s']:.4f} s at {r['peak_ad_gib']:.3f} GiB")
+    if misses:
+        raise RuntimeError("room gradients missed their gates: " + "; ".join(misses))
+    out = {k: {"all": rec["launches"].get(k, 0)} for k in KERNEL_KEYS}
+    pix = room_grad_fd.band_pixels(room, room_grad_fd.PIXELS, room.background.device)
+    for mode in ("replay", "ad"):
+        torch.cuda.synchronize()
+        _launch.reset_launches()
+        room_grad_fd.gradient(room, "albedo0", mode, pix)
+        got = kernels_only(dict(_launch.LAUNCHES), ("packet_closest", "packet_anyhit"), f"a room {mode} gradient")
+        for k in KERNEL_KEYS:
+            out[k][mode] = got.get(k, 0)
+    phase("room grad", f"{rec['band_paths']} paths, d{rec['depth']}, through K3 alone: launches {rec['launches']}; "
+          f"in one gradient, replay {out['packet_closest']['replay']} + {out['packet_anyhit']['replay']}, AD "
+          f"{out['packet_closest']['ad']} + {out['packet_anyhit']['ad']} (closest + any hit)")
+    return out
+
+
+def inverse_cell(torch, dev):
+    """24 inverse: take_tpu_torch/inverse_demo.py cut to INVERSE_STEPS Adam
+    steps (64x64, 32 spp a step, d4, its 512-spp target): the loss falls,
+    every parameter moves toward the truth, every gradient is finite, K1/K2
+    alone. Returns K1/K2's launches a step."""
+    from take_tpu_torch import inverse_demo
+
+    rec, params, losses = inverse_demo.run(steps=INVERSE_STEPS, device=dev, log_every=0)
+    true = inverse_demo.physical(inverse_demo.raw(inverse_demo.TRUE, "cpu"))
+    init = inverse_demo.physical(inverse_demo.raw(inverse_demo.INIT, "cpu"))
+    got = inverse_demo.physical(params)
+    dist = {k: (float(np.linalg.norm(init[k] - true[k])), float(np.linalg.norm(got[k] - true[k]))) for k in true}
+    phase("inverse", f"{rec['steps']} Adam steps at {inverse_demo.RES}x{inverse_demo.RES}, {rec['spp_per_step']} "
+          f"spp a step: {rec['seconds']:.3f} s ({rec['seconds_per_step']:.4f} s a step); loss {rec['loss_first']:.6f} "
+          f"-> {rec['loss_last']:.6f} (mean of the last 10); distance to the truth "
+          + ", ".join(f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in dist.items())
+          + f"; max_rel_err {rec['max_rel_err']}; finite {rec['grads_finite']}; launches a step "
+          f"{rec['launches_per_step']}")
+    if not rec["loss_last"] < rec["loss_first"] or not all(b < a for a, b in dist.values()):
+        raise RuntimeError("the inverse demo did not move toward the truth")
+    if not rec["grads_finite"] or set(rec["launches_per_step"]) != {"closest", "anyhit"}:
+        raise RuntimeError(f"the inverse demo: gradients finite {rec['grads_finite']}, "
+                           f"launches {rec['launches_per_step']}")
+    return rec["launches_per_step"]
+
+
 def main():
     import torch
 
@@ -1953,6 +2066,7 @@ def main():
         raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
     sys.path.insert(0, str(ROOT))
     from take_tpu_torch.geometry import _build, brute, cluster, packet, sweep
+    from take_tpu_torch.scene.types import scene_to
 
     build_phase(_build, (brute, packet, cluster, sweep))
     dev = torch.device(DEVICE)
@@ -1968,7 +2082,7 @@ def main():
                      mis_pass_bound_ms=passes_mis[entry["name"]][1])
     launches_tex, tex_img = textured_cell(torch, dev, out_dir)
     reference_phase(torch, dev, mis_img, tex_img, room)
-    del room
+    room = scene_to(room, "cpu")  # off the card until phase 23
     launches_ibl, passes_ibl = ibl_cell(torch, dev, out_dir)
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_ibl=launches_ibl[entry["name"]], ibl_pass_ms=passes_ibl[entry["name"]][0],
@@ -1979,8 +2093,18 @@ def main():
     launches_par = parallel_cell(torch, dev, out_dir, cbox_img, smi)
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_parallel={k: v[entry["name"]] for k, v in launches_par.items()})
+    launches_bench = bench_cell(torch, dev)
+    launches_room_grad = room_grad_cell(torch, scene_to(room, dev))
+    del room
+    launches_inverse = inverse_cell(torch, dev)
+    for entry in kernels:
+        entry.update(launches_bench=launches_bench[entry["name"]],
+                     launches_room_grad=launches_room_grad[entry["name"]])
+    for entry in kernels[:2]:  # K1, K2
+        entry.update(launches_inverse_step=launches_inverse[entry["name"]])
     phase("times", f"launches per default render: cbox {launches}, room {launches_room}, mis {launches_mis}, "
-          f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}; parallel {launches_par}")
+          f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}; parallel {launches_par}; "
+          f"bench {launches_bench}; room grad {launches_room_grad}; inverse step {launches_inverse}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

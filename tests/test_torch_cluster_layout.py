@@ -31,7 +31,9 @@ from take_tpu_torch.geometry.packet import BIG, affine_test, inv_dir, slab
 from take_tpu_torch.scene.build import SceneBuilder
 from take_tpu_torch.scene.parse_xml import parse_scene_file
 from tests.test_torch_cuda import tiled_tables
-from tests.torch_parity import port_soup
+from tests.torch_parity import one_torch_thread, port_soup  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOM = os.path.join(os.path.dirname(__file__), "..", "scenes", "room", "room.xml")
 SOURCE = os.path.join(os.path.dirname(__file__), "..", "take_tpu_torch", "csrc", "cluster.cu")

@@ -545,6 +545,23 @@ def test_brute_tiled_soup(card):
 
 
 @pytest.mark.cuda
+def test_bench_soup_check_of_every_route(card):
+    """take_tpu_torch/bench.py's kernel check (bench.py:224-300's, with K3's
+    and K5's any hit added): on benchmarks/tpu_smoke.py's 3000-triangle soup
+    with a BVH and 1024 rays with tmax = +inf, K3, K4 and K6 give
+    brute.closest_plain's winner on every ray, and K3, K5 and K6 any hit
+    its prim >= 0; each kernel launches once."""
+    from take_tpu_torch import bench
+
+    _launch.reset_launches()
+    ok, err = bench.kernels_check("cuda")
+    assert ok, err
+    for kernel in ("packet", "cluster", "sweep"):
+        assert _launch.LAUNCHES[f"{kernel}_closest"] == _launch.LAUNCHES[f"{kernel}_anyhit"] == 1
+    assert _launch.LAUNCHES["packet_closest_plain"] == _launch.LAUNCHES["closest"] == 0
+
+
+@pytest.mark.cuda
 def test_brute_kernels_equal_reference_on_captured_batches(card):
     """K1 and K2 on the queries a cbox render launches (one pass of a 256x256,
     1 spp, d4 render: camera, bounce and shadow rays) equal the reference

@@ -20,7 +20,9 @@ from take_tpu_torch.scene.build import SceneBuilder
 from take_tpu_torch.scene.parse_xml import parse_scene_file
 from take_tpu_torch.scene.types import BVHArrays
 from tests.test_torch_cuda import chain_scene
-from tests.torch_parity import port_soup
+from tests.torch_parity import one_torch_thread, port_soup  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ROOM = os.path.join(os.path.dirname(__file__), "..", "scenes", "room", "room.xml")
 BIG = float(np.float32(packet.BIG))  # t of a miss, as float32 holds it

@@ -124,7 +124,8 @@ def test_import_leaves_jax_out():
             "[importlib.import_module(n) for n in names]; "
             "assert {'take_tpu_torch.cli', 'take_tpu_torch.entry', 'take_tpu_torch.parallel.sharding', "
             "'take_tpu_torch.parallel.distributed', 'take_tpu_torch.parallel.overlap', "
-            "'take_tpu_torch.utils.checkpoint', 'take_tpu_torch.utils.metrics', 'take_tpu_torch.run_configs'} "
+            "'take_tpu_torch.utils.checkpoint', 'take_tpu_torch.utils.metrics', 'take_tpu_torch.run_configs', "
+            "'take_tpu_torch.bench', 'take_tpu_torch.room_grad_fd', 'take_tpu_torch.inverse_demo'} "
             "<= set(names), names; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'take_tpu')); "
             "assert not bad, bad")

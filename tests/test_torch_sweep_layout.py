@@ -16,8 +16,11 @@ does bit for bit (the kernel rounds its triangle test as the twin does),
 on room's rays, on edge rays, on a table of several chunks and on one of
 more than 16,384 clusters, and its work counters must equal
 `sweep.sweep_work`'s, a hand count on a table made by hand, and the
-figures counted for room's mix. The kernel itself is held to the twin on
-the card (tests/test_torch_cuda.py, chip_smoke.py).
+figures counted for room's mix. The walk on edge rays and with lists
+that fill lives in test_torch_sweep_walk.py and test_torch_sweep_walk_fill.py,
+so that the test suite's workers run them beside this file. The kernel
+itself is held to the twin on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
 import os
@@ -32,6 +35,9 @@ from take_tpu_torch.geometry import sweep
 from take_tpu_torch.geometry.bvh import CLUSTER_K
 from take_tpu_torch.geometry.packet import BIG, affine_test, inv_dir, slab
 from tests.test_torch_cluster_layout import _edge_rays, _mix, _rays, _slabs, room  # noqa: F401 (fixture)
+from tests.torch_parity import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SOURCE = os.path.join(os.path.dirname(__file__), "..", "take_tpu_torch", "csrc", "sweep.cu")
 
@@ -267,38 +273,6 @@ def test_walk_matches_twin_on_room_mix(room):  # noqa: F811
     assert abs(per_ray[0].item() - 142.0) < 0.1 and abs(per_ray[1].item() - 2.931) < 0.01
     assert abs(per_ray[2].item() - 175.9) < 1.0 and abs(per_ray[3].item() / 7589 - 1) < 0.01
     assert (anyhit[live].double().mean(dim=0)[:3] < per_ray[:3]).all()
-
-
-def test_walk_matches_twin_when_lists_fill(room, monkeypatch):  # noqa: F811
-    """A list of 16 pairs on 2,048 rays of the room mix: blocks sweep where
-    their lists fill, many times a chunk; the answers stay sweep_plain's bit
-    for bit and the counters sweep_work's, and rays enter fewer clusters
-    than with the kernel's list (their ranges shrink sooner)."""
-    bvh = room.bvh
-    rays = _mix(room, 2048, seed=3)
-    args = (bvh.cl_aabb, bvh.tris, room.meta.n_tri)
-    full = sweep.sweep_work(*args, *rays)
-    monkeypatch.setattr(sys.modules[__name__], "PAIRS", 16)
-    monkeypatch.setattr(sweep, "PAIRS", 16)
-    closest, _, _ = _assert_walk(*args, rays)
-    assert closest[:, 1].sum() < full[:, 1].sum()
-
-
-def test_walk_matches_twin_on_edge_rays(room, monkeypatch):  # noqa: F811
-    """Room's edge rays (on cluster box faces, from box centres, aimed at
-    shared vertices and edges, grazing the room's walls, dead and padded
-    lanes, a ragged count), with a list of 4 pairs so that ranges shrink
-    between boxes: the walk answers as sweep_plain bit for bit; dead and
-    padded lanes miss."""
-    bvh = room.bvh
-    rays = _edge_rays(room)
-    assert rays[0].shape[0] % THREADS
-    args = (bvh.cl_aabb, bvh.tris, room.meta.n_tri)
-    monkeypatch.setattr(sys.modules[__name__], "PAIRS", 4)
-    monkeypatch.setattr(sweep, "PAIRS", 4)
-    t, _, _, prim = _assert_walk(*args, rays)[2]
-    off = rays[3] < rays[2]
-    assert (prim[off] == -1).all() and (t[off] == BIG).all() and (prim[~off] >= 0).float().mean() > 0.8
 
 
 @pytest.mark.parametrize("which", ["edge", "mix"])

@@ -2,7 +2,13 @@
 """Smoke check of take_tpu_torch on one CUDA card: `python3 chip_smoke.py`.
 
 Drives the port's main paths on the card, in phases; each phase prints one
-line and any failure raises, so the exit code is non-zero:
+line and any failure raises, so the exit code is non-zero. Every render pass
+of the scan integrators replays one captured CUDA graph per compile key
+(take_tpu_torch/render.py), so the renders and times of phases 4-13 and
+22-24 are graph passes (a key's first pass also runs a warm-up pass, whose
+launches count); renders through the plain twins and the passes that
+capture_queries records run op by op (render.eager()), and phase 25 holds
+the two modes against each other:
 
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
@@ -136,6 +142,19 @@ line and any failure raises, so the exit code is non-zero:
       step, d4, a 512-spp target): the loss falls, every parameter moves
       toward the truth, every gradient is finite, K1/K2 alone.
 
+  graph (the pass as one captured CUDA graph per key against the pass op by
+  op, render.eager()):
+  25. cbox 1024x1024 16 spp d4, mis 512x512 128 spp d6, room 1920x1080 4
+      spp d6 (through K3, under FORCE_SWEEP and under FORCE_CLUSTER),
+      textured 512x512 64 spp d6 and ibl 1024x1024 d6 at GRAPH_IBL_SPP spp:
+      a warm render in each mode, then eager and graph in turns (E G E G),
+      each graph image equal to the eager image bit for bit and each
+      render's launches equal, or the script raises; seconds, Mrays/s and
+      their ratio, the capture and instantiate seconds of each key, peak
+      memory allocated in each mode and the bytes the graphs' pools hold;
+      then one pass of cbox and of ibl under torch.profiler in each mode
+      (busy share of the device span, host launches), and render.PASSES.
+
 It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
 and bounds in cbox, mis and ibl, and their launches in mis and ibl; K4 and
@@ -149,6 +168,7 @@ device JSON line. It fails without a CUDA device, and when run outside a
 checkout of the repo.
 """
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -191,6 +211,7 @@ GRAD_FD_RTOL = 0.03  # the red wall's albedo gradient vs central FD (tests/test_
 BANDS, BANDED_LOSS_RTOL, BANDED_RTOL, BANDED_ATOL = 4, 1e-5, 2e-4, 1e-6
 CKPT_EVERY, RANK_TIMEOUT = 4, 600
 INVERSE_STEPS = 100  # the inverse demo's Adam steps (its published 800 cut)
+GRAPH_IBL_SPP = 16  # ibl's spp in the graph phase, eager and graph in turns (cut from 256 for time)
 # a pixel regrouped from k = 1 to k = 2 sums the same 16 nonnegative float32
 # samples in another order: within 15 roundings, 15 x 2^-24 = 9e-7 of the pixel
 SUM_REL = 1e-5
@@ -337,7 +358,9 @@ def capture_queries(torch, scene, options, cluster_route=False, sweep_route=Fals
     scene, or with cluster_route K4/K5's (cluster.closest/occluded, under
     traverse.FORCE_CLUSTER), or with sweep_route K6's closest hits
     (sweep.closest, under traverse.FORCE_SWEEP) and K3's any hits, else
-    K1/K2's (brute.closest/occluded). Returns [("closest" or "anyhit",
+    K1/K2's (brute.closest/occluded). The pass runs op by op
+    (render.eager()): the recording clones each batch in Python, which a
+    replayed graph would not run. Returns [("closest" or "anyhit",
     [ro, rd, tmin, tmax])] in launch order."""
     from take_tpu_torch.geometry import brute, cluster, packet, sweep, traverse
 
@@ -363,7 +386,7 @@ def capture_queries(torch, scene, options, cluster_route=False, sweep_route=Fals
             mock.patch.object(module, "occluded", recording("anyhit", module.occluded)), \
             mock.patch.object(traverse, "FORCE_CLUSTER", cluster_route), \
             mock.patch.object(traverse, "FORCE_SWEEP", sweep_route), \
-            mock.patch.object(render, "render_pass", first_pass):
+            mock.patch.object(render, "render_pass", first_pass), render.eager():
         try:
             render.render_image(scene, options)
         except FirstPass:
@@ -815,7 +838,7 @@ def cbox_cell(torch, dev, out_dir):
     its time in seconds."""
     from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
-    from take_tpu_torch.render import render_image
+    from take_tpu_torch.render import eager, render_image
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions
 
@@ -837,7 +860,7 @@ def cbox_cell(torch, dev, out_dir):
     small = with_res(scene, 256)
     img_k = render_image(small, options)
     with mock.patch.object(brute, "closest", brute.closest_plain), \
-            mock.patch.object(brute, "occluded", brute.occluded_plain):
+            mock.patch.object(brute, "occluded", brute.occluded_plain), eager():
         img_p = render_image(small, options)
     torch.cuda.synchronize()
     rel, mk = mean_rel(img_k, img_p)
@@ -957,7 +980,7 @@ def room_cell(torch, dev, out_dir):
     from take_tpu_torch.geometry import bvh as bvh_build
     from take_tpu_torch.scene.types import scene_from_numpy
     from take_tpu_torch.io.exr import write_exr
-    from take_tpu_torch.render import render_image
+    from take_tpu_torch.render import eager, render_image
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions
 
@@ -1046,7 +1069,7 @@ def room_cell(torch, dev, out_dir):
         img_6, _ = render_counted(torch, _launch, render_image, small, room_opts,
                                   ("sweep_closest", "packet_anyhit"), "room K6 render")
     with mock.patch.object(packet, "closest", lambda b, *r: packet.packet_plain(b, *r)), \
-            mock.patch.object(packet, "occluded", lambda b, *r: packet.packet_plain(b, *r, any_hit=True)):
+            mock.patch.object(packet, "occluded", lambda b, *r: packet.packet_plain(b, *r, any_hit=True)), eager():
         img_p, _ = render_counted(torch, _launch, render_image, small, room_opts,
                                   ("packet_closest_plain", "packet_anyhit_plain"), "room twin render")
     rel = {k: mean_rel(im, img_p) for k, im in (("K3", img_k), ("K4/K5", img_c), ("K6", img_6))}
@@ -1143,7 +1166,7 @@ def mis_cell(torch, dev, out_dir):
     Returns (launches, per-pass sums of brute_captured, the image)."""
     from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
-    from take_tpu_torch.render import render_image
+    from take_tpu_torch.render import eager, render_image
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions
 
@@ -1163,7 +1186,7 @@ def mis_cell(torch, dev, out_dir):
     small = with_res(scene, MIS_SMALL)
     img_k = render_image(small, options)
     with mock.patch.object(brute, "closest", brute.closest_plain), \
-            mock.patch.object(brute, "occluded", brute.occluded_plain):
+            mock.patch.object(brute, "occluded", brute.occluded_plain), eager():
         img_p, _ = render_counted(torch, _launch, render_image, small, options,
                                   ("closest_plain", "anyhit_plain"), "mis twin render")
     rel, mk = mean_rel(img_k, img_p)
@@ -1187,7 +1210,7 @@ def textured_cell(torch, dev, out_dir):
     image."""
     from take_tpu_torch.geometry import _launch, packet
     from take_tpu_torch.io.exr import write_exr
-    from take_tpu_torch.render import render_image, use_wavefront_policy
+    from take_tpu_torch.render import eager, render_image, use_wavefront_policy
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions
 
@@ -1217,7 +1240,7 @@ def textured_cell(torch, dev, out_dir):
     img_k, _ = render_counted(torch, _launch, render_image, tiny, options,
                               ("packet_closest", "packet_anyhit"), "textured K3 render")
     with mock.patch.object(packet, "closest", lambda b, *r: packet.packet_plain(b, *r)), \
-            mock.patch.object(packet, "occluded", lambda b, *r: packet.packet_plain(b, *r, any_hit=True)):
+            mock.patch.object(packet, "occluded", lambda b, *r: packet.packet_plain(b, *r, any_hit=True)), eager():
         img_p, _ = render_counted(torch, _launch, render_image, tiny, options,
                                   ("packet_closest_plain", "packet_anyhit_plain"), "textured twin render")
     rel, mk = mean_rel(img_k, img_p)
@@ -1296,7 +1319,7 @@ def ibl_cell(torch, dev, out_dir):
     from take_tpu_torch.geometry import _launch, brute
     from take_tpu_torch.io.exr import write_exr
     from take_tpu_torch.lights import envmap
-    from take_tpu_torch.render import render_image, use_wavefront_policy
+    from take_tpu_torch.render import eager, render_image, use_wavefront_policy
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions
 
@@ -1342,7 +1365,7 @@ def ibl_cell(torch, dev, out_dir):
     small = with_res(scene, IBL_SMALL)
     img_k = render_image(small, options)
     with mock.patch.object(brute, "closest", brute.closest_plain), \
-            mock.patch.object(brute, "occluded", brute.occluded_plain):
+            mock.patch.object(brute, "occluded", brute.occluded_plain), eager():
         img_p, _ = render_counted(torch, _launch, render_image, small, options,
                                   ("closest_plain", "anyhit_plain"), "ibl twin render")
     rel, mk = mean_rel(img_k, img_p)
@@ -1483,6 +1506,7 @@ def grad_parity(torch, scene, red):
     textured BVH scene's texel block through K3 against FD."""
     from take_tpu_torch import grad
     from take_tpu_torch.geometry import _launch, brute
+    from take_tpu_torch.render import eager
     from take_tpu_torch.scene import edit
     from take_tpu_torch.scene.types import RenderOptions
 
@@ -1499,7 +1523,7 @@ def grad_parity(torch, scene, red):
     if not (launches["closest"] and launches["anyhit"]) or launches["closest_plain"] or launches["anyhit_plain"]:
         raise RuntimeError(f"the 64x64 gradient did not run on K1/K2 alone: {launches}")
     with mock.patch.object(brute, "closest", brute.closest_plain), \
-            mock.patch.object(brute, "occluded", brute.occluded_plain):
+            mock.patch.object(brute, "occluded", brute.occluded_plain), eager():
         loss_p, g_p = grad.render_loss_grad(small, opts, pix, target, GRAD_SPP)
     err_twin = table_grads_close(torch, "kernels vs twins", g_k, g_p, GRAD_TABLE_TOL)
     loss_r, g_r = grad.render_loss_grad(small, dataclasses.replace(opts, grad_mode="replay"), pix, target, GRAD_SPP)
@@ -2056,6 +2080,138 @@ def inverse_cell(torch, dev):
     return rec["launches_per_step"]
 
 
+def graph_pool_bytes(torch):
+    """Bytes the caching allocator holds in the private pools of captured
+    graphs (their intermediates stay reserved there between replays)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def profile_pass(torch, fn):
+    """One call of `fn` under torch.profiler: (busy share of the device
+    span, busy ms, device span ms, host ms, host launches: kernels launched
+    one by one and graphs launched)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    intervals, kernels, graphs = [], 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            intervals.append((e.time_range.start, e.time_range.end))
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            kernels += 1
+        elif e.name == "cudaGraphLaunch":
+            graphs += 1
+    if not intervals:
+        raise RuntimeError("the profiler saw no device time")
+    intervals.sort()
+    busy, (lo, hi) = 0.0, intervals[0]
+    for a, b in intervals[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    span = max(b for _, b in intervals) - intervals[0][0]
+    return busy / span, busy / 1e3, span / 1e3, host * 1e3, {"kernels": kernels, "graphs": graphs}
+
+
+def graph_cell(torch, dev, smi, room):
+    """25 graph: each config rendered op by op (render.eager()) and through
+    captured pass graphs, a warm render of each, then in turns E G E G:
+    every graph image equal to the eager image bit for bit and every
+    render's launches equal (or the script raises); seconds, Mrays/s and
+    their ratio; capture and instantiate seconds of each key; peak memory
+    allocated in each mode and the bytes the graphs' pools hold; then one
+    pass of cbox and of ibl profiled in each mode."""
+    from take_tpu_torch import _graph
+    from take_tpu_torch.geometry import _launch, traverse
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")
+    cbox = with_res(parse_scene_file(str(SCENE), device=dev), RES)
+    mis = parse_scene_file(str(MIS), device=dev)
+    tex = parse_scene_file(str(TEXTURED), device=dev)
+    ibl = parse_scene_file(str(IBL), device=dev)
+    room_opts = RenderOptions(spp=ROOM_SPP, max_depth=ROOM_DEPTH, seed=SEED)
+    ibl_opts = RenderOptions(spp=GRAPH_IBL_SPP, max_depth=IBL_DEPTH, seed=SEED)
+    configs = [
+        ("cbox", cbox, RenderOptions(spp=SPP, max_depth=MAX_DEPTH, seed=SEED), None),
+        ("mis", mis, RenderOptions(spp=MIS_SPP, max_depth=MIS_DEPTH, seed=SEED), None),
+        ("room", room, room_opts, None),
+        ("room FORCE_SWEEP", room, room_opts, "FORCE_SWEEP"),
+        ("room FORCE_CLUSTER", room, room_opts, "FORCE_CLUSTER"),
+        ("textured", tex, RenderOptions(spp=TEX_SPP, max_depth=TEX_DEPTH, seed=SEED), None),
+        ("ibl", ibl, ibl_opts, None),
+    ]
+    for label, scene, opts, flag in configs:
+        cam = scene.meta.camera
+        with mock.patch.object(traverse, flag, True) if flag else contextlib.nullcontext():
+            render.clear_cache()
+            with render.eager():
+                want = render.render_image(scene, opts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render.render_image(scene, opts)  # captures each key of the render
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            keys = [(e.inputs[0].shape[0], round(e.capture_s, 4), round(e.instantiate_s, 4))
+                    for e in _graph.captured()]
+            secs, launches, peaks = {"eager": [], "graph": []}, {}, {}
+            for mode in ("eager", "graph", "eager", "graph"):
+                with render.eager() if mode == "eager" else contextlib.nullcontext():
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    _launch.reset_launches()
+                    t0 = time.perf_counter()
+                    img = render.render_image(scene, opts)
+                    torch.cuda.synchronize()
+                    secs[mode].append(time.perf_counter() - t0)
+                    got = {k: v for k, v in _launch.LAUNCHES.items() if v}
+                peaks[mode] = max(peaks.get(mode, 0), torch.cuda.max_memory_allocated())
+                launches.setdefault(mode, got)
+                if not np.array_equal(img, want):
+                    raise RuntimeError(f"graph {label}: the {mode} image differs from the first eager image "
+                                       f"(max abs {np.abs(img - want).max():.3e})")
+                if got != launches["eager"]:
+                    raise RuntimeError(f"graph {label}: {mode} render launched {got}, eager {launches['eager']}")
+            pool = graph_pool_bytes(torch)
+        rays = cam.width * cam.height * opts.spp * (1 + 2 * (opts.max_depth + 1))
+        med = {m: float(np.median(v)) for m, v in secs.items()}
+        phase("graph", f"{label} {cam.width}x{cam.height} {opts.spp} spp d{opts.max_depth}: graph image equal to the "
+              f"eager image bit for bit; launches a render equal in both modes {launches['graph']}; in turns E G E G "
+              f"eager {secs['eager']} s, graph {secs['graph']} s; Mrays/s eager {rays / med['eager'] / 1e6:.3f}, graph "
+              f"{rays / med['graph'] / 1e6:.3f}, graph/eager speed {med['eager'] / med['graph']:.3f}x; first graph "
+              f"render (captures) {t_first:.4f} s; keys (pixels a pass, capture s, instantiate s) {keys}; peak "
+              f"allocated eager {peaks['eager'] / 2**30:.3f} GiB, graph {peaks['graph'] / 2**30:.3f} GiB, graph "
+              f"pools {pool / 2**30:.3f} GiB; card: {smi}")
+
+    rows = []
+    for label, scene, opts in (("cbox", cbox, configs[0][2]), ("ibl", ibl, ibl_opts)):
+        cam = scene.meta.camera
+        k = max(1, min(opts.spp, opts.max_rays_per_pass // (cam.width * cam.height)))
+        pix = torch.arange(min(cam.width * cam.height, opts.max_rays_per_pass // k), dtype=torch.int32, device=dev)
+
+        def one_pass():
+            with torch.inference_mode():
+                render.render_pass(scene, opts, pix, 0, cam.width, k)
+
+        for mode in ("eager", "graph"):
+            with render.eager() if mode == "eager" else contextlib.nullcontext():
+                one_pass()  # a graph's key captured, the eager pass warm
+                share, busy, span, host, calls = profile_pass(torch, one_pass)
+            rows.append(f"{label} {mode} ({pix.shape[0]} pixels x {k}): busy {share:.4f} of the device span "
+                        f"({busy:.3f} of {span:.3f} ms), host {host:.3f} ms, host launches {calls}")
+    phase("graph", "one pass under torch.profiler: " + "; ".join(rows))
+    render.clear_cache()
+    phase("graph", f"render.PASSES over the script: {render.PASSES}")
+
+
 def main():
     import torch
 
@@ -2066,6 +2222,7 @@ def main():
         raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
     sys.path.insert(0, str(ROOT))
     from take_tpu_torch.geometry import _build, brute, cluster, packet, sweep
+    from take_tpu_torch.render import clear_cache
     from take_tpu_torch.scene.types import scene_to
 
     build_phase(_build, (brute, packet, cluster, sweep))
@@ -2083,6 +2240,7 @@ def main():
     launches_tex, tex_img = textured_cell(torch, dev, out_dir)
     reference_phase(torch, dev, mis_img, tex_img, room)
     room = scene_to(room, "cpu")  # off the card until phase 23
+    clear_cache()  # and out of the pass graphs that hold it
     launches_ibl, passes_ibl = ibl_cell(torch, dev, out_dir)
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_ibl=launches_ibl[entry["name"]], ibl_pass_ms=passes_ibl[entry["name"]][0],
@@ -2094,9 +2252,11 @@ def main():
     for entry in kernels[:2]:  # K1, K2
         entry.update(launches_parallel={k: v[entry["name"]] for k, v in launches_par.items()})
     launches_bench = bench_cell(torch, dev)
-    launches_room_grad = room_grad_cell(torch, scene_to(room, dev))
-    del room
+    room = scene_to(room, dev)
+    launches_room_grad = room_grad_cell(torch, room)
     launches_inverse = inverse_cell(torch, dev)
+    graph_cell(torch, dev, smi, room)
+    del room
     for entry in kernels:
         entry.update(launches_bench=launches_bench[entry["name"]],
                      launches_room_grad=launches_room_grad[entry["name"]])

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
-from take_tpu_torch.core.math import C_PI, cross, normalize
+from take_tpu_torch.core.math import C_PI, constant, cross, normalize
 
 
 @dataclass(frozen=True)
@@ -27,9 +27,9 @@ class Camera:
     vfov: float  # vertical fov in degrees
 
     def basis(self, device, dtype=torch.float32):
-        lookfrom = torch.tensor(self.lookfrom, dtype=dtype, device=device)
-        lookat = torch.tensor(self.lookat, dtype=dtype, device=device)
-        up = torch.tensor(self.up, dtype=dtype, device=device)
+        lookfrom = constant(self.lookfrom, dtype, device)
+        lookat = constant(self.lookat, dtype, device)
+        up = constant(self.up, dtype, device)
         w = normalize(lookfrom - lookat)
         u = normalize(cross(up, w))
         v = cross(w, u)
@@ -39,7 +39,7 @@ class Camera:
         """(width, height) of the viewport at unit distance, computed in
         `dtype` as the JAX version does."""
         theta = self.vfov / 180.0 * C_PI
-        h = torch.tan(torch.tensor(theta / 2.0, dtype=dtype, device=device))
+        h = torch.tan(torch.full((), theta / 2.0, dtype=dtype, device=device))
         viewport_height = 2.0 * h
         viewport_width = viewport_height / self.height * self.width
         return viewport_width, viewport_height
@@ -61,5 +61,5 @@ def generate_rays(camera, px, py, jx, jy):
     sx = ((px + jx) / camera.width - 0.5) * vp_w
     sy = ((py + jy) / camera.height - 0.5) * vp_h
     d = normalize(sx[..., None] * u + sy[..., None] * v - w)
-    o = torch.tensor(camera.lookfrom, dtype=dtype, device=device)
+    o = constant(camera.lookfrom, dtype, device)
     return o.expand(d.shape).contiguous(), d

@@ -35,6 +35,13 @@ def normalize(a, eps=0.0):
     return a / torch.sqrt(n2)
 
 
+def constant(values, dtype, device):
+    """A tensor of Python floats made on `device` by fills, with no copy
+    from the host, which a captured CUDA graph (render.py) cannot hold. Each
+    float rounds to `dtype` as torch.tensor(values, dtype) rounds it."""
+    return torch.stack([torch.full((), float(x), dtype=dtype, device=device) for x in values])
+
+
 def to_world(n, v):
     """Frisvad branchless ONB: map local vector v into the frame around n,
     including the n.z < -1+1e-6 singular branch (vector.h:314-326)."""
@@ -44,8 +51,8 @@ def to_world(n, v):
     b = -nx * ny * a
     x_reg = torch.stack([1.0 - nx * nx * a, b, -nx], dim=-1)
     y_reg = torch.stack([b, 1.0 - ny * ny * a, -ny], dim=-1)
-    x_sing = n.new_tensor([0.0, -1.0, 0.0]).expand(n.shape)
-    y_sing = n.new_tensor([-1.0, 0.0, 0.0]).expand(n.shape)
+    x_sing = constant((0.0, -1.0, 0.0), n.dtype, n.device).expand(n.shape)
+    y_sing = constant((-1.0, 0.0, 0.0), n.dtype, n.device).expand(n.shape)
     s = singular[..., None]
     x = torch.where(s, x_sing, x_reg)
     y = torch.where(s, y_sing, y_reg)

@@ -27,7 +27,7 @@ Primal renders run under torch.inference_mode() (render.py).
 import torch
 
 from take_tpu_torch.core import rng
-from take_tpu_torch.core.math import dot, normalize, safe_div, safe_norm
+from take_tpu_torch.core.math import constant, dot, normalize, safe_div, safe_norm
 from take_tpu_torch.geometry.intersect import intersect_scene, occluded
 from take_tpu_torch.lights.envmap import envmap_eval, envmap_pdf, envmap_sample
 from take_tpu_torch.lights.lights import (
@@ -195,7 +195,7 @@ def _vertex_sample(scene: Scene, streams, i, hit, sp, rd):
     dir_out, bpdf = bsdf_sample(scene, sp, dir_in, u_lobe, ub1, ub2, ub3)
     sample_ok = bpdf > 0.0
     # failed samples may carry a zero direction: substitute a unit one
-    dir_out = torch.where(sample_ok[:, None], dir_out, dir_out.new_tensor([0.0, 0.0, 1.0]))
+    dir_out = torch.where(sample_ok[:, None], dir_out, constant((0.0, 0.0, 1.0), dir_out.dtype, dir_out.device))
     # detached sampling: the sampled direction is a constant under AD (its
     # pdf stays attached), in every loop, as in take_tpu
     # (path_tracer.py:283-290); reparameterisation terms through dir_out

@@ -21,7 +21,9 @@ points away from the surface. Every function is batched [N] and branch-free.
 
 import torch
 
-from take_tpu_torch.core.math import C_INVPI, C_PI, C_TWOPI, cross, dot, face_forward, normalize, reflect, to_world
+from take_tpu_torch.core.math import (
+    C_INVPI, C_PI, C_TWOPI, constant, cross, dot, face_forward, normalize, reflect, to_world,
+)
 from take_tpu_torch.core.sampling import sample_hemisphere_cos
 from take_tpu_torch.materials import bsdf
 from take_tpu_torch.scene.types import (
@@ -57,8 +59,8 @@ def _alphas(roughness, anisotropic):
 def _frame(sp, dir_in):
     """Shading frame (n flipped toward dir_in) and its tangents via to_world."""
     n = face_forward(sp.sh_n, dir_in)
-    tx = to_world(n, n.new_tensor([1.0, 0.0, 0.0]).expand(n.shape))
-    ty = to_world(n, n.new_tensor([0.0, 1.0, 0.0]).expand(n.shape))
+    tx = to_world(n, constant((1.0, 0.0, 0.0), n.dtype, n.device).expand(n.shape))
+    ty = to_world(n, constant((0.0, 1.0, 0.0), n.dtype, n.device).expand(n.shape))
     return n, tx, ty
 
 
@@ -100,7 +102,7 @@ def _sample_ggx_vndf(wl, ax, ay, u1, u2):
     t1 = torch.where(
         (lensq > 1e-12)[..., None],
         torch.stack([-v[..., 1] * inv, v[..., 0] * inv, torch.zeros_like(inv)], -1),
-        v.new_tensor([1.0, 0.0, 0.0]).expand(v.shape),
+        constant((1.0, 0.0, 0.0), v.dtype, v.device).expand(v.shape),
     )
     t2 = cross(v, t1)
     r = _sqrt0(torch.clamp(u1, 0.0, 1.0))

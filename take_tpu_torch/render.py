@@ -5,19 +5,48 @@ path axis [n_pixels * spp_chunk] and rendered in passes of at most
 RenderOptions.max_rays_per_pass paths; passes accumulate on the scene's
 device. The reference's y-flip (img(x, H-1-y), render.cpp:78) happens at
 assembly.
+
+A pass on the card runs as one captured CUDA graph per compile key, the
+counterpart of take_tpu's jitted pass (`_render_pass_jit`, one executable
+per static key): `render_pass` captures the pass at a key's first call and
+replays the graph on every later one (take_tpu_torch/_graph.py). The key is
+take_tpu's: the options with `spp` and `max_rays_per_pass` normalized, the
+width, the samples a pass and the pixel batch's shape, dtype and device;
+and, since a graph reads fixed addresses, the scene's tables (address,
+shape, strides, dtype, version: a table written in place or replaced is a
+new key; the graph holds the scene) and the route a query takes at call
+time (`traverse.FORCE_CLUSTER`/`FORCE_SWEEP` and the kernel functions, so
+a patched route never replays another's graph). The scan integrators
+(`GRAPH_INTEGRATORS`) are captured under inference mode or no_grad; a pass
+that autograd records, the loops that sync the host (`mis_replay`,
+`mis_wavefront`), every pass inside `eager()` and every pass on the CPU run
+op by op. `PASSES` counts both kinds; `clear_cache()` drops every graph.
 """
 
+import contextlib
+import dataclasses
 import os
 import time
 
 import torch
 
+from take_tpu_torch import _graph
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.camera import generate_rays
+from take_tpu_torch.geometry import brute, cluster, packet, sweep, traverse
 from take_tpu_torch.integrator.path_tracer import trace_mis, trace_mis_replay
 from take_tpu_torch.integrator.variants import trace_one_sample_mis, trace_one_sample_mis_power, trace_raw
 from take_tpu_torch.integrator.wavefront import trace_wavefront
+from take_tpu_torch.lights import envmap
 from take_tpu_torch.scene.types import RenderOptions, Scene
+
+# The integrators whose pass makes no host sync, so that it can be captured.
+GRAPH_INTEGRATORS = ("mis", "mis_scan", "one_sample_mis", "one_sample_mis_power", "raw")
+# Module functions a pass looks up at call time; each is part of the key.
+ROUTE = tuple((m, name) for m in (brute, packet, cluster, sweep) for name in ("closest", "occluded")) + (
+    (envmap, "_dir_to_uv"), (envmap, "_uv_to_dir"))
+PASSES = {"graph": 0, "eager": 0}  # passes run, by kind
+_EAGER = [0]  # depth of eager() contexts
 
 
 def use_wavefront_policy(scene: Scene, options: RenderOptions) -> bool:
@@ -59,15 +88,28 @@ def checks_enabled() -> bool:
     return os.environ.get("TAKE_TPU_CHECKS", "") == "1"
 
 
-def render_pass(scene: Scene, options: RenderOptions, pixel_idx, sample0: int, width: int, n_samples: int):
-    """Render `n_samples` consecutive samples for a batch of pixels.
+@contextlib.contextmanager
+def eager():
+    """Run every pass op by op inside this context: the counterpart of
+    jax.disable_jit(). Needed where a pass cannot be captured (a route
+    patched to plain twins that sync the host, e.g. `packet_plain`) or must
+    run its Python each time (a patch that records its arguments). Nests."""
+    _EAGER[0] += 1
+    try:
+        yield
+    finally:
+        _EAGER[0] -= 1
 
-    Args:
-        pixel_idx: [P] int32 linearized pixel index (y * width + x).
-        sample0: first sample index of this pass.
-    Returns:
-        [P, 3] radiance *sum* over the pass's samples.
-    """
+
+def clear_cache():
+    """Drop every captured pass graph: the counterpart of jax.clear_caches()."""
+    _graph.clear()
+
+
+def _pass(scene: Scene, options: RenderOptions, pixel_idx, sample0, width: int, n_samples: int):
+    """The pass's computation (take_tpu's `_render_pass_jit` body): `sample0`
+    is a 0-d int32 tensor on the pixels' device, so a captured graph reads
+    it as it reads the pixels."""
     trace = _trace_fn(scene, options)
     P = pixel_idx.shape[0]
     # pixel-major path flattening: lane i*k + j = (pixel i, sample j)
@@ -84,6 +126,61 @@ def render_pass(scene: Scene, options: RenderOptions, pixel_idx, sample0: int, w
     ro, rd = generate_rays(scene.meta.camera, px, py, jx, jy)
     radiance = trace(scene, options, ro, rd, streams)
     return radiance.reshape(P, n_samples, 3).sum(dim=1)
+
+
+def _tables(obj):
+    """The tables of a scene (or of one of its groups) as hashable facts:
+    each tensor's address, shape, strides, dtype, device and version (-1 for
+    an inference tensor, which keeps none), groups nested, the rest as is."""
+    out = []
+    for f in dataclasses.fields(obj):
+        x = getattr(obj, f.name)
+        if isinstance(x, torch.Tensor):
+            out.append((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype, x.device,
+                        -1 if x.is_inference() else x._version))
+        elif dataclasses.is_dataclass(x) and not type(x).__dataclass_params__.frozen:
+            out.append(_tables(x))
+        else:
+            out.append(x)
+    return tuple(out)
+
+
+def pass_key(scene: Scene, options: RenderOptions, pixel_idx, width: int, n_samples: int):
+    """The compile key of a pass, as take_tpu/render.py::render_pass forms
+    it (spp and max_rays_per_pass are read by the host's pass loop only, so
+    a 1-spp warm-up and a 4096-spp render share a key), with the scene's
+    tables and the route the pass takes now."""
+    key_options = dataclasses.replace(options, spp=1, max_rays_per_pass=RenderOptions.max_rays_per_pass)
+    route = (traverse.FORCE_CLUSTER, traverse.FORCE_SWEEP, *(getattr(m, name) for m, name in ROUTE))
+    return (key_options, width, n_samples, tuple(pixel_idx.shape), pixel_idx.dtype, pixel_idx.device,
+            _tables(scene), route)
+
+
+def graphed(options: RenderOptions, pixel_idx) -> bool:
+    """Whether render_pass replays a captured graph for this pass."""
+    return (pixel_idx.is_cuda and not _EAGER[0] and options.integrator in GRAPH_INTEGRATORS
+            and not torch.is_grad_enabled())
+
+
+def render_pass(scene: Scene, options: RenderOptions, pixel_idx, sample0, width: int, n_samples: int):
+    """Render `n_samples` consecutive samples for a batch of pixels.
+
+    Args:
+        pixel_idx: [P] int32 linearized pixel index (y * width + x).
+        sample0: first sample index of this pass.
+    Returns:
+        [P, 3] radiance *sum* over the pass's samples: a tensor of its own,
+        also when a graph computed it.
+    """
+    s0 = torch.full((), sample0, dtype=torch.int32, device=pixel_idx.device)
+    if not graphed(options, pixel_idx):
+        PASSES["eager"] += 1
+        return _pass(scene, options, pixel_idx, s0, width, n_samples)
+    PASSES["graph"] += 1
+    key = pass_key(scene, options, pixel_idx, width, n_samples)
+    key_options = key[0]
+    return _graph.run(key, scene, lambda pix, s: _pass(scene, key_options, pix, s, width, n_samples),
+                      [pixel_idx, s0])
 
 
 def render_image(scene: Scene, options: RenderOptions = RenderOptions(), progress=None):

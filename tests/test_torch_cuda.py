@@ -5,9 +5,11 @@ JAX nor take_tpu, so they run where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import dataclasses
 import json
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -810,3 +812,85 @@ def test_run_configs_cbox_meets_its_gates(card, tmp_path, capsys):
     line = next(x for x in capsys.readouterr().out.splitlines() if x.startswith("cbox_256_16spp "))
     agreement = json.loads(line.split(" ", 1)[1])["vs_take_tpu"]
     assert agreement["n_pixels"] == 256 * 256 and run_configs.agreement_misses("cbox", agreement) == []
+
+
+def _graph_and_eager(scene, opts):
+    """(graph image, eager image, graph launches, eager launches) of one
+    render each, after a warm render of each (the graph's keys captured)."""
+    import importlib
+
+    render = importlib.import_module("take_tpu_torch.render")
+    out = {}
+    for mode in ("graph", "eager"):
+        with render.eager() if mode == "eager" else contextlib.nullcontext():
+            render.render_image(scene, opts)
+            _launch.reset_launches()
+            out[mode] = (render.render_image(scene, opts), {k: v for k, v in _launch.LAUNCHES.items() if v})
+    return out["graph"][0], out["eager"][0], out["graph"][1], out["eager"][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["raw", "one_sample_mis"])
+@pytest.mark.parametrize("name, res", [("cbox", (64, 64)), ("room", (96, 54)), ("ibl", (32, 32))])
+def test_graph_passes_equal_eager_on_card(card, request, name, res, integrator):
+    """render_image through captured pass graphs equals it op by op
+    (render.eager()) bit for bit, over several bands and passes, with the
+    same kernel launches a render; cbox and ibl through K1, room through
+    K3."""
+    from take_tpu_torch.scene.types import RenderOptions
+
+    scene = request.getfixturevalue("room") if name == "room" else parse_scene_file(
+        os.path.join(SCENES, name, f"{name}.xml"), device="cuda")
+    scene = with_res(scene, *res)
+    opts = RenderOptions(spp=3, max_depth=4, seed=1, integrator=integrator, max_rays_per_pass=res[0] * 20)
+    img_g, img_e, launches_g, launches_e = _graph_and_eager(scene, opts)
+    assert img_g.shape == (res[1], res[0], 3) and np.isfinite(img_g).all() and img_g.mean() > 0
+    assert np.array_equal(img_g, img_e)
+    assert launches_g == launches_e  # the variants make closest-hit queries only (integrator/variants.py)
+    assert set(launches_g) == ({"packet_closest"} if name == "room" else {"closest"})
+
+
+@pytest.mark.cuda
+def test_graph_passes_in_a_list_do_not_alias(card):
+    """Each render_pass returns a tensor of its own: passes of one key kept
+    in a list keep their values, each equal to its eager pass bit for bit."""
+    import importlib
+
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 32)
+    opts = RenderOptions(spp=8, max_depth=4)
+    pix = torch.arange(32 * 32, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        passes = [render.render_pass(scene, opts, pix, s, 32, 2) for s in (0, 2, 4, 6)]
+        with render.eager():
+            want = [render.render_pass(scene, opts, pix, s, 32, 2) for s in (0, 2, 4, 6)]
+    assert len({p.data_ptr() for p in passes}) == 4
+    for p, w in zip(passes, want):
+        assert torch.equal(p, w)
+    assert not torch.equal(passes[0], passes[1])
+
+
+@pytest.mark.cuda
+def test_uncapturable_route_raises_outside_eager(card, room):
+    """K3's route patched to packet_plain, which reads counts on the host
+    (.nonzero(), int(top.max())): a capture raises, nothing falls back to
+    eager; inside render.eager() the same render runs, through the twin."""
+    import importlib
+
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")
+    small = with_res(room, 24, 16)
+    opts = RenderOptions(spp=1, max_depth=2)
+    plain = (lambda b, *r: packet.packet_plain(b, *r), lambda b, *r: packet.packet_plain(b, *r, any_hit=True))
+    with mock.patch.object(packet, "closest", plain[0]), mock.patch.object(packet, "occluded", plain[1]):
+        with pytest.raises(RuntimeError):
+            render.render_image(small, opts)
+        torch.cuda.synchronize()
+        _launch.reset_launches()
+        with render.eager():
+            img = render.render_image(small, opts)
+    assert np.isfinite(img).all() and img.mean() > 0
+    assert {k for k, v in _launch.LAUNCHES.items() if v} == {"packet_closest_plain", "packet_anyhit_plain"}

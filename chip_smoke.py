@@ -3,12 +3,14 @@
 
 Drives the port's main paths on the card, in phases; each phase prints one
 line and any failure raises, so the exit code is non-zero. Every render pass
-of the scan integrators replays one captured CUDA graph per compile key
-(take_tpu_torch/render.py), so the renders and times of phases 4-13 and
-22-24 are graph passes (a key's first pass also runs a warm-up pass, whose
-launches count); renders through the plain twins and the passes that
-capture_queries records run op by op (render.eager()), and phase 25 holds
-the two modes against each other:
+of the scan integrators and mis_replay replays one captured CUDA graph per
+compile key (take_tpu_torch/render.py), and every gradient pass one graph
+per pass key holding its forward and backward (take_tpu_torch/grad.py), so
+the renders, gradients and times of phases 4-16, 19 and 22-24 are graph
+passes (a key's first pass also runs a warm-up pass, whose launches count);
+renders and gradients through the plain twins and the passes that
+capture_queries records run op by op (render.eager()), and phases 25 and 26
+hold the two modes against each other:
 
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
@@ -84,8 +86,9 @@ the two modes against each other:
   grad (scenes/cbox/cbox.xml at 1024x1024; gradients through K1/K2, and K3
   on a BVH scene):
   14. the replay primal: render_image with integrator "mis_replay" at the
-      cbox cell's settings through K1/K2 alone, equal to the cbox image bit
-      for bit, timed beside the scan loop;
+      cbox cell's settings through K1/K2 alone, through graphs and op by
+      op, each equal to the cbox image bit for bit, the two timed in turns
+      (G E E G) beside the scan loop;
   15. card-side gradients at 64x64: every table of render_loss_grad's
       gradient Scene through the kernels against the same with brute's
       closest/occluded patched to the plain twins, replay against AD, the
@@ -154,6 +157,25 @@ the two modes against each other:
       memory allocated in each mode and the bytes the graphs' pools hold;
       then one pass of cbox and of ibl under torch.profiler in each mode
       (busy share of the device span, host launches), and render.PASSES.
+
+  grad graph (each gradient pass as one captured CUDA graph per key, forward
+  and backward, against the pass op by op, render.eager()):
+  26. the grad cell's step (1024x1024, 4 spp, d4, replay, carried into its
+      raw parameters), bench's 1080p banded replay gradient (phase 22), one
+      pass of GRAD_AB_PATHS paths under "ad" and under "replay", room_grad_fd's
+      band (2^16 pixels x 4 samples, d6, K3) under "ad" and "replay", and
+      inverse_demo's step (64x64, 32 spp, d4, AD): a first graph call (the
+      captures), a warm eager call, then in turns E G E G, each graph loss
+      equal to the eager loss bit for bit, each table (and raw parameter;
+      the inverse step's raw parameters alone, its op-by-op step
+      differentiating them alone) within max(2 x its eager-eager
+      difference, 1e-5 x its largest magnitude), launches equal and no
+      later capture, or the script raises; seconds and their ratio,
+      capture and instantiate seconds a key, peak allocated memory in each
+      mode, the graphs' pool bytes and captures per cell; op by op, the
+      trips each replay loop (forward, pass 1, pass 2) skips by its early
+      exit; then one replay pass of 2^20 paths of the grad cell under
+      torch.profiler in each mode, and grad.PASSES.
 
 It then prints each cell's launches, the kernels' JSON line (with each
 kernel's bound_ms and bound_by; K1 and K2 also carry their per-pass times
@@ -1568,7 +1590,7 @@ def grad_cell(torch, dev, out_dir, mis_img, mis_dt):
     one pass of GRAD_AB_PATHS paths. Returns K1/K2's launches in one step."""
     from take_tpu_torch import grad
     from take_tpu_torch.geometry import _launch
-    from take_tpu_torch.render import render_image
+    from take_tpu_torch.render import eager, render_image
     from take_tpu_torch.scene import edit
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions, float_tables
@@ -1577,11 +1599,21 @@ def grad_cell(torch, dev, out_dir, mis_img, mis_dt):
     options = RenderOptions(spp=SPP, max_depth=MAX_DEPTH, seed=SEED, integrator="mis_replay")
     img, launches = render_counted(torch, _launch, render_image, scene, options, ("closest", "anyhit"),
                                    "cbox mis_replay")
-    if not np.array_equal(img, mis_img):
-        raise RuntimeError("the mis_replay image differs from the mis image")
-    dt, mrays = timed_render(torch, render_image, scene, options)
-    phase("grad", f"mis_replay {RES}x{RES} {SPP} spp d{MAX_DEPTH} through K1/K2 alone ({launches}): equal to the "
-          f"mis image bit for bit; {dt:.4f} s = {mrays:.3f} Mrays/s (the scan loop {mis_dt:.4f} s)")
+    with eager():
+        img_e = render_image(scene, options)
+    if not (np.array_equal(img, mis_img) and np.array_equal(img_e, mis_img)):
+        raise RuntimeError("the mis_replay image (graph or eager) differs from the mis image")
+
+    def eager_render(s, o):
+        with eager():
+            return render_image(s, o)
+
+    secs = in_turns(torch, {"graph": render_image, "eager": eager_render}, scene, options)
+    dt = float(np.median(secs["graph"]))
+    phase("grad", f"mis_replay {RES}x{RES} {SPP} spp d{MAX_DEPTH} through K1/K2 alone ({launches}): graph and eager "
+          f"images equal to the mis image bit for bit; in turns G E E G graph {secs['graph']} s, eager "
+          f"{secs['eager']} s, graph/eager speed {float(np.median(secs['eager'])) / dt:.3f}x; graph "
+          f"{RES * RES * SPP * (1 + 2 * (MAX_DEPTH + 1)) / dt / 1e6:.3f} Mrays/s (the scan loop {mis_dt:.4f} s)")
 
     red = red_material(scene)
     true_rgb = scene.materials.attr[red, 7:10].cpu().numpy().astype(np.float64)
@@ -2120,16 +2152,67 @@ def profile_pass(torch, fn):
     return busy / span, busy / 1e3, span / 1e3, host * 1e3, {"kernels": kernels, "graphs": graphs}
 
 
+def eager_graph_turns(torch, label, fn, compare=None):
+    """`fn` once through graphs (its keys' captures), once op by op
+    (render.eager(), warm), then in turns E G E G, each call between
+    synchronises with the peak memory and the kernel launches reset. `fn()`
+    returns (out, seconds or None: its own time, else the host clock's).
+    Raises if a call's launches differ from the first eager call's or a
+    graph is captured after the first call; then `compare(outs)`, with
+    outs {mode: [out of each turn]}, raises on a miss. Returns {first_s,
+    keys: [(the first input's shape, capture s, instantiate s)], captures,
+    secs: {mode: [s]}, ratio (eager over graph, medians), launches,
+    peaks: {mode: bytes}, pool: the graphs' pool bytes}."""
+    from take_tpu_torch import _graph
+    from take_tpu_torch.geometry import _launch
+
+    render = importlib.import_module("take_tpu_torch.render")
+    render.clear_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()  # captures each key
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    with render.eager():
+        fn()  # a warm eager call: the allocator's blocks for eager calls beside the graphs' pool
+    graphs = {id(e) for e in _graph.captured()}
+    keys = [(tuple(e.inputs[0].shape), round(e.capture_s, 4), round(e.instantiate_s, 4)) for e in _graph.captured()]
+    secs, launches, peaks, outs = {"eager": [], "graph": []}, {}, {}, {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "eager", "graph"):
+        with render.eager() if mode == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _launch.reset_launches()
+            t0 = time.perf_counter()
+            out, own_s = fn()
+            torch.cuda.synchronize()
+            secs[mode].append(own_s if own_s is not None else time.perf_counter() - t0)
+            got = {k: v for k, v in _launch.LAUNCHES.items() if v}
+        peaks[mode] = max(peaks.get(mode, 0), torch.cuda.max_memory_allocated())
+        launches.setdefault(mode, got)
+        outs[mode].append(out)
+        if got != launches["eager"]:
+            raise RuntimeError(f"{label}: the {mode} call launched {got}, eager {launches['eager']}")
+    if {id(e) for e in _graph.captured()} != graphs:
+        raise RuntimeError(f"{label}: a graph was captured after the first call")
+    if compare:
+        compare(outs)
+    med = {m: float(np.median(v)) for m, v in secs.items()}
+    return {"first_s": first_s, "keys": keys, "captures": len(graphs), "secs": secs,
+            "ratio": med["eager"] / med["graph"], "launches": launches["graph"], "peaks": peaks,
+            "pool": graph_pool_bytes(torch)}
+
+
 def graph_cell(torch, dev, smi, room):
     """25 graph: each config rendered op by op (render.eager()) and through
-    captured pass graphs, a warm render of each, then in turns E G E G:
+    captured pass graphs, a first graph render (the captures) and a warm
+    eager render, then in turns E G E G (eager_graph_turns):
     every graph image equal to the eager image bit for bit and every
     render's launches equal (or the script raises); seconds, Mrays/s and
     their ratio; capture and instantiate seconds of each key; peak memory
     allocated in each mode and the bytes the graphs' pools hold; then one
     pass of cbox and of ibl profiled in each mode."""
-    from take_tpu_torch import _graph
-    from take_tpu_torch.geometry import _launch, traverse
+    from take_tpu_torch.geometry import traverse
     from take_tpu_torch.scene.parse_xml import parse_scene_file
     from take_tpu_torch.scene.types import RenderOptions
 
@@ -2151,45 +2234,26 @@ def graph_cell(torch, dev, smi, room):
     ]
     for label, scene, opts, flag in configs:
         cam = scene.meta.camera
-        with mock.patch.object(traverse, flag, True) if flag else contextlib.nullcontext():
-            render.clear_cache()
-            with render.eager():
-                want = render.render_image(scene, opts)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            render.render_image(scene, opts)  # captures each key of the render
-            torch.cuda.synchronize()
-            t_first = time.perf_counter() - t0
-            keys = [(e.inputs[0].shape[0], round(e.capture_s, 4), round(e.instantiate_s, 4))
-                    for e in _graph.captured()]
-            secs, launches, peaks = {"eager": [], "graph": []}, {}, {}
-            for mode in ("eager", "graph", "eager", "graph"):
-                with render.eager() if mode == "eager" else contextlib.nullcontext():
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    _launch.reset_launches()
-                    t0 = time.perf_counter()
-                    img = render.render_image(scene, opts)
-                    torch.cuda.synchronize()
-                    secs[mode].append(time.perf_counter() - t0)
-                    got = {k: v for k, v in _launch.LAUNCHES.items() if v}
-                peaks[mode] = max(peaks.get(mode, 0), torch.cuda.max_memory_allocated())
-                launches.setdefault(mode, got)
+
+        def same_images(outs):
+            want = outs["eager"][0]
+            for mode, img in ((m, x) for m, imgs in outs.items() for x in imgs):
                 if not np.array_equal(img, want):
-                    raise RuntimeError(f"graph {label}: the {mode} image differs from the first eager image "
+                    raise RuntimeError(f"graph {label}: a {mode} image differs from the first eager image "
                                        f"(max abs {np.abs(img - want).max():.3e})")
-                if got != launches["eager"]:
-                    raise RuntimeError(f"graph {label}: {mode} render launched {got}, eager {launches['eager']}")
-            pool = graph_pool_bytes(torch)
+
+        with mock.patch.object(traverse, flag, True) if flag else contextlib.nullcontext():
+            r = eager_graph_turns(torch, f"graph {label}", lambda: (render.render_image(scene, opts), None),
+                                  same_images)
         rays = cam.width * cam.height * opts.spp * (1 + 2 * (opts.max_depth + 1))
-        med = {m: float(np.median(v)) for m, v in secs.items()}
+        med = {m: float(np.median(v)) for m, v in r["secs"].items()}
         phase("graph", f"{label} {cam.width}x{cam.height} {opts.spp} spp d{opts.max_depth}: graph image equal to the "
-              f"eager image bit for bit; launches a render equal in both modes {launches['graph']}; in turns E G E G "
-              f"eager {secs['eager']} s, graph {secs['graph']} s; Mrays/s eager {rays / med['eager'] / 1e6:.3f}, graph "
-              f"{rays / med['graph'] / 1e6:.3f}, graph/eager speed {med['eager'] / med['graph']:.3f}x; first graph "
-              f"render (captures) {t_first:.4f} s; keys (pixels a pass, capture s, instantiate s) {keys}; peak "
-              f"allocated eager {peaks['eager'] / 2**30:.3f} GiB, graph {peaks['graph'] / 2**30:.3f} GiB, graph "
-              f"pools {pool / 2**30:.3f} GiB; card: {smi}")
+              f"eager image bit for bit; launches a render equal in both modes {r['launches']}; in turns E G E G "
+              f"eager {r['secs']['eager']} s, graph {r['secs']['graph']} s; Mrays/s eager {rays / med['eager'] / 1e6:.3f}, "
+              f"graph {rays / med['graph'] / 1e6:.3f}, graph/eager speed {r['ratio']:.3f}x; first graph render "
+              f"(captures) {r['first_s']:.4f} s; keys (pixels a pass, capture s, instantiate s) {r['keys']}; peak "
+              f"allocated eager {r['peaks']['eager'] / 2**30:.3f} GiB, graph {r['peaks']['graph'] / 2**30:.3f} GiB, "
+              f"graph pools {r['pool'] / 2**30:.3f} GiB; card: {smi}")
 
     rows = []
     for label, scene, opts in (("cbox", cbox, configs[0][2]), ("ibl", ibl, ibl_opts)):
@@ -2210,6 +2274,174 @@ def graph_cell(torch, dev, smi, room):
     phase("graph", "one pass under torch.profiler: " + "; ".join(rows))
     render.clear_cache()
     phase("graph", f"render.PASSES over the script: {render.PASSES}")
+
+
+def loop_trips(record, D):
+    """The trips each replay loop ran, from the conditions
+    path_tracer._running returned in order: a loop asks before each trip
+    and stops at the first False or after D trips. Raises if the record
+    ends inside a loop."""
+    trips, n = [], 0
+    for r in record:
+        n += bool(r)
+        if not r or n == D:
+            trips.append(n)
+            n = 0
+    if n:
+        raise RuntimeError(f"the record of the replay loops ends inside a loop, after {n} trips")
+    return trips
+
+
+def replay_trips(fn, D):
+    """`fn` run op by op (render.eager()) with path_tracer._running watched:
+    {loop: [trips run, trips skipped]} over the forward loop, pass 1 and
+    pass 2 of every replay pass it ran (the loops run in that order, pass by
+    pass)."""
+    from take_tpu_torch.integrator import path_tracer
+
+    render = importlib.import_module("take_tpu_torch.render")
+    record, running = [], path_tracer._running
+
+    def spy(active):
+        record.append(running(active))
+        return record[-1]
+
+    with mock.patch.object(path_tracer, "_running", spy), render.eager():
+        fn()
+    out = {"forward": [0, 0], "pass 1": [0, 0], "pass 2": [0, 0]}
+    for j, t in enumerate(loop_trips(record, D)):
+        loop = out[("forward", "pass 1", "pass 2")[j % 3]]
+        loop[0], loop[1] = loop[0] + t, loop[1] + D - t
+    return out
+
+
+def grad_graph_cell(torch, dev, smi, room):
+    """26 grad graph: each gradient cell op by op (render.eager()) and
+    through captured gradient graphs (one a pass key, forward and backward)
+    by eager_graph_turns: a first graph call (the captures), a warm eager
+    call, then in turns E G E G, with the same kernel launches and no
+    capture after the first call; each graph loss equal to the first eager
+    loss bit for bit, each table of the gradient and each raw parameter's
+    (the inverse step: its raw parameters') within max(2 x its difference
+    between the two eager calls, 1e-5 x its largest magnitude) of the first
+    eager call's (or the script raises); seconds and their ratio, capture
+    and instantiate seconds a key, peak memory allocated in each mode, the
+    graphs' pool bytes and captures per cell; then op by op the trips the
+    replay loops skip (their early exit) in each replay cell, and one
+    replay pass of 2^20 paths of the grad cell under torch.profiler in each
+    mode."""
+    from take_tpu_torch import bench, grad, inverse_demo, room_grad_fd
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene import edit
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    render = importlib.import_module("take_tpu_torch.render")
+    cbox = with_res(parse_scene_file(str(SCENE), device=dev), RES)
+    n = RES * RES
+    pix = torch.arange(n, dtype=torch.int32, device=dev)
+    target_img = render_image(cbox, RenderOptions(spp=GRAD_TARGET_SPP, max_depth=MAX_DEPTH, seed=3))
+    target = torch.as_tensor(target_img[::-1].copy(), device=dev).reshape(n, 3)
+    red = red_material(cbox)
+    opts = RenderOptions(spp=GRAD_SPP, max_depth=MAX_DEPTH, seed=GRAD_SEED, grad_mode="auto")
+    k = GRAD_AB_PATHS // GRAD_SPP
+    ab = slice((n - k) // 2, (n + k) // 2)
+    rpix = room_grad_fd.band_pixels(room, room_grad_fd.PIXELS, dev)
+    base = inverse_demo.cornell_box(inverse_demo.RES, inverse_demo.RES).build(device=dev)
+    ipix = torch.arange(inverse_demo.RES ** 2, dtype=torch.int32, device=dev)
+    itarget = inverse_demo.target_image(base, ipix)
+
+    def grad_step():  # the grad cell's step 0 (replay), carried into its raw parameters
+        wall = torch.zeros(3, device=dev, requires_grad=True)
+        log_light = torch.tensor(np.log(0.5), dtype=torch.float32, device=dev).requires_grad_(True)
+        s = edit.with_light_intensity_scale(edit.with_material_reflectance(cbox, red, torch.sigmoid(wall)),
+                                            torch.exp(log_light))
+        loss, g = grad.render_loss_grad(s, opts, pix, target, GRAD_SPP)
+        grad.backward(s, g)
+        return (loss, {**float_tables(g), "d/dwall_logit": wall.grad, "d/dlog_light": log_light.grad}), None
+
+    def bench_grad():  # bench's 1080p banded replay gradient: its bands' losses, the frame's gradient, its seconds
+        g = bench.banded_grad(cbox)
+        bands = [float_tables(x) for x in g["grads"]]
+        return (torch.tensor(g["losses"], dtype=torch.float64), {k: sum(b[k] for b in bands) for k in bands[0]}), \
+            g["seconds"]
+
+    def ab_pass(mode):
+        def fn():
+            loss, g = grad.render_loss_grad(cbox, dataclasses.replace(opts, grad_mode=mode), pix[ab], target[ab],
+                                            GRAD_SPP)
+            return (loss, float_tables(g)), None
+        return fn
+
+    def room_band(mode):  # room_grad_fd's band: its mean radiance and albedo0's gradient
+        def fn():
+            mean, g, dd = room_grad_fd.band_grad(room, "albedo0", mode, rpix)
+            return (mean, {**float_tables(g), "d/dalbedo0": dd}), None
+        return fn
+
+    def inverse_step():  # inverse_demo's first step (AD): its loss and raw parameters' gradients
+        params = {k: v.requires_grad_(True) for k, v in inverse_demo.raw(inverse_demo.INIT, dev).items()}
+        loss = inverse_demo.loss_grad(base, params, ipix, itarget, 0)
+        return (loss, {f"d/d{k}": p.grad for k, p in params.items()}), None
+
+    cells = [  # (label, fn, replay loops' D or None for AD)
+        (f"grad step {RES}x{RES} {GRAD_SPP} spp d{MAX_DEPTH} replay", grad_step, MAX_DEPTH + 1),
+        (f"bench {bench.GRAD_SIZE[0]}x{bench.GRAD_SIZE[1]} 1 spp d{bench.MAX_DEPTH} replay, bands of {bench.BAND}",
+         bench_grad, bench.MAX_DEPTH + 1),
+        (f"{GRAD_AB_PATHS} paths ad", ab_pass("ad"), None),
+        (f"{GRAD_AB_PATHS} paths replay", ab_pass("replay"), MAX_DEPTH + 1),
+        (f"room band {room_grad_fd.PIXELS}x{room_grad_fd.SAMPLES} d{room_grad_fd.DEPTH} ad", room_band("ad"), None),
+        (f"room band {room_grad_fd.PIXELS}x{room_grad_fd.SAMPLES} d{room_grad_fd.DEPTH} replay", room_band("replay"),
+         room_grad_fd.DEPTH + 1),
+        (f"inverse step {inverse_demo.RES}x{inverse_demo.RES} {inverse_demo.SPP} spp d{inverse_demo.DEPTH} ad",
+         inverse_step, None),
+    ]
+    for label, fn, D in cells:
+        worst = [0.0, None]  # the largest graph-eager difference over its limit, and its table
+
+        def close_to_eager(outs):
+            (loss_e, e1), (_, e2) = [(loss.detach(), {k: v.detach() for k, v in t.items()}) for loss, t in outs["eager"]]
+            for loss_g, g in outs["graph"]:
+                if not torch.equal(loss_g.detach(), loss_e):
+                    raise RuntimeError(f"grad graph {label}: the graph loss {loss_g.tolist()} is not the eager loss "
+                                       f"{loss_e.tolist()} bit for bit")
+                for key, x in e1.items():
+                    limit = max(2 * float((e2[key] - x).abs().max()), 1e-5 * float(x.abs().max()))
+                    diff = float((g[key].detach() - x).abs().max())
+                    if diff > limit:
+                        raise RuntimeError(f"grad graph {label}: {key} differs from eager by {diff:.3e} (limit "
+                                           f"{limit:.3e})")
+                    if limit and diff / limit >= worst[0]:
+                        worst[:] = [diff / limit, key]
+
+        r = eager_graph_turns(torch, f"grad graph {label}", fn, close_to_eager)
+        trips = replay_trips(fn, D) if D else "none (the scan loop has no early exit)"
+        phase("grad graph", f"{label}: graph loss equal to eager's bit for bit, every table within its limit (the "
+              f"largest difference {worst[0]:.3f} of its limit, in {worst[1]}), launches a call equal in both modes "
+              f"{r['launches']}; in turns E G E G eager {r['secs']['eager']} s, graph {r['secs']['graph']} s, "
+              f"graph/eager speed {r['ratio']:.3f}x; first graph call (captures) {r['first_s']:.4f} s; captures "
+              f"{r['captures']}, keys (pixels a pass, capture s, instantiate s) {r['keys']}; peak allocated eager "
+              f"{r['peaks']['eager'] / 2**30:.3f} GiB, graph {r['peaks']['graph'] / 2**30:.3f} GiB, graph pool "
+              f"{r['pool'] / 2**30:.3f} GiB; replay loop trips [run, skipped] op by op {trips}; card: {smi}")
+
+    render.clear_cache()
+    s0 = step0_scene(torch, cbox, red)
+    p1 = pix[:opts.max_rays_per_pass // GRAD_SPP]
+
+    def one_pass():
+        grad.partial_loss_grad(s0, opts, p1, target[:p1.shape[0]], GRAD_SPP, "replay", n * 3)
+
+    rows = []
+    for mode in ("eager", "graph"):
+        with render.eager() if mode == "eager" else contextlib.nullcontext():
+            one_pass()  # a graph's key captured, the eager pass warm
+            share, busy, span, host, calls = profile_pass(torch, one_pass)
+        rows.append(f"{mode}: busy {share:.4f} of the device span ({busy:.3f} of {span:.3f} ms), host {host:.3f} "
+                    f"ms, host launches {calls}")
+    phase("grad graph", f"one replay pass of {p1.shape[0] * GRAD_SPP} paths (the grad cell's step 0) under "
+          f"torch.profiler: " + "; ".join(rows))
+    render.clear_cache()
+    phase("grad graph", f"grad.PASSES over the script: {grad.PASSES}")
 
 
 def main():
@@ -2256,6 +2488,7 @@ def main():
     launches_room_grad = room_grad_cell(torch, room)
     launches_inverse = inverse_cell(torch, dev)
     graph_cell(torch, dev, smi, room)
+    grad_graph_cell(torch, dev, smi, room)
     del room
     for entry in kernels:
         entry.update(launches_bench=launches_bench[entry["name"]],

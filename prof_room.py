@@ -140,7 +140,8 @@ loss of render_loss_grad against a GRAD_SPP-spp target) and prints:
   2. modes: one render_loss_grad pass of each size in GRAD_PASSES paths
      under grad_mode "ad" and "replay", interleaved ad, replay, replay, ad,
      each on the host clock up to a synchronise with its peak memory
-     (torch.cuda.max_memory_allocated);
+     (torch.cuda.max_memory_allocated); since the gradient passes replay
+     captured graphs, the first call of each size and mode captures;
   3. profile: one replay pass of 2^20 paths and one AD pass of 2^18 under
      torch.profiler, the forward (radiance and loss) alone and then with
      its backward: busy share, kernel time by kind, launches, and the
@@ -162,6 +163,25 @@ envmap scene), textured (512x512, 64 spp, d6; an open BVH scene) and room
      each loop under torch.profiler, with the device time of the envmap
      lookups (envmap_eval/sample/pdf) and of the Disney lobes (disney.py)
      beside K1 + K2.
+
+`python3 prof_room.py --grad-ab DIR` times the gradient entry points of the
+take_tpu_torch in DIR (a parent's tree, staged under the ignored build/
+directory:
+
+    mkdir -p build/grad_ab/parent
+    git archive <parent> | tar -x -C build/grad_ab/parent
+
+) against this tree's, each tree in a fresh process of its own
+(`--grad-worker TREE`), in turns: parent, this, this, parent. Each worker
+runs, on scenes/cbox/cbox.xml, the grad cell's step (1024x1024, 4 spp, d4,
+"auto" = replay, carried into its raw parameters), bench.banded_grad (the
+1080p replay gradient; its own seconds), one pass of 2^18 paths under "ad"
+and under "replay", and one inverse_demo step (64x64, 32 spp, d4, AD) on
+one base scene, each through the tree's own code and chip_smoke.py's
+eager_graph_turns (a first call through graphs, a warm call op by op,
+then op by op and through graphs in turns, E G E G); a tree without
+gradient graphs runs both modes op by op. It prints each worker's seconds
+and, last, the median of each (tree, mode) per cell.
 
 Times are Mrays/s by bench.py's metric, rays = W * H * spp * (1 + 2 (d + 1)).
 """
@@ -1039,6 +1059,7 @@ def policy(torch, render_image, parse_scene_file, RenderOptions):
 def grad_modes(torch, render_image, parse_scene_file, RenderOptions):
     import chip_smoke as cs
     from take_tpu_torch import grad
+    from take_tpu_torch.scene.types import float_tables, replace_tables
 
     scene = cs.with_res(parse_scene_file(str(CBOX), device="cuda"), 1024)
     cam = scene.meta.camera
@@ -1069,7 +1090,7 @@ def grad_modes(torch, render_image, parse_scene_file, RenderOptions):
     def one_pass(paths, mode, backward=True):
         """One pass: the radiance and loss, then (with `backward`) the
         backward, each on the host clock up to a synchronise."""
-        s, _ = grad._leaves(scene)
+        s = replace_tables(scene, {k: v.detach().requires_grad_(True) for k, v in float_tables(scene).items()})
         sl = centre(paths)
         host = {}
         torch.cuda.synchronize()
@@ -1096,11 +1117,157 @@ def grad_modes(torch, render_image, parse_scene_file, RenderOptions):
                          + ("forward and backward" if backward else "forward alone"))
 
 
+def grad_worker(torch):
+    """One tree's gradient cells (--grad-ab), each through chip_smoke's
+    eager_graph_turns (this tree's copy, running the other tree's code):
+    {cell: {"eager": [s], "graph": [s]}} as one JSON line. A tree without
+    gradient graphs runs both modes op by op."""
+    import importlib.util
+    import json
+
+    from take_tpu_torch import bench, grad, inverse_demo
+    from take_tpu_torch.render import render_image
+    from take_tpu_torch.scene import edit
+    from take_tpu_torch.scene.parse_xml import parse_scene_file
+    from take_tpu_torch.scene.types import RenderOptions
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cbox = cs.with_res(parse_scene_file(str(CBOX), device="cuda"), 1024)
+    n = 1024 * 1024
+    pix = torch.arange(n, dtype=torch.int32, device="cuda")
+    img = render_image(cbox, RenderOptions(spp=16, max_depth=4, seed=3))
+    target = torch.as_tensor(img[::-1].copy(), device="cuda").reshape(n, 3)
+    red = cs.red_material(cbox)
+    opts = RenderOptions(spp=GRAD_SPP, max_depth=4, seed=11, grad_mode="auto")
+    k = (1 << 18) // GRAD_SPP
+    ab = slice((n - k) // 2, (n + k) // 2)
+    base = inverse_demo.cornell_box(inverse_demo.RES, inverse_demo.RES).build(device="cuda")
+    ipix = torch.arange(inverse_demo.RES ** 2, dtype=torch.int32, device="cuda")
+    i_opts = RenderOptions(spp=1, max_depth=inverse_demo.DEPTH, seed=inverse_demo.SEED)
+    with torch.no_grad():
+        itarget = grad.render_radiance(inverse_demo.apply(base, inverse_demo.raw(inverse_demo.TRUE, "cuda")),
+                                       dataclasses.replace(i_opts, seed=inverse_demo.TARGET_SEED), ipix, 0,
+                                       inverse_demo.TARGET_SPP)
+
+    def step():
+        wall = torch.zeros(3, device="cuda", requires_grad=True)
+        log_light = torch.tensor(np.log(0.5), dtype=torch.float32, device="cuda").requires_grad_(True)
+        s = edit.with_light_intensity_scale(edit.with_material_reflectance(cbox, red, torch.sigmoid(wall)),
+                                            torch.exp(log_light))
+        _, g = grad.render_loss_grad(s, opts, pix, target, GRAD_SPP)
+        grad.backward(s, g)
+        return None, None
+
+    def ab_pass(mode):
+        def fn():
+            grad.render_loss_grad(cbox, dataclasses.replace(opts, grad_mode=mode), pix[ab], target[ab], GRAD_SPP)
+            return None, None
+        return fn
+
+    def inverse_step():  # one Adam step's gradient on one base scene: loss_grad, or the loop body before it
+        params = {k: v.requires_grad_(True) for k, v in inverse_demo.raw(inverse_demo.INIT, "cuda").items()}
+        if hasattr(inverse_demo, "loss_grad"):
+            inverse_demo.loss_grad(base, params, ipix, itarget, 0)
+        else:
+            img = grad.render_radiance(inverse_demo.apply(base, params), i_opts, ipix, 0, inverse_demo.SPP)
+            torch.mean((img - itarget) ** 2).backward()
+        return None, None
+
+    cells = {
+        "grad step": step,
+        "bench 1080p": lambda: (None, bench.banded_grad(cbox)["seconds"]),
+        "2^18 ad": ab_pass("ad"),
+        "2^18 replay": ab_pass("replay"),
+        "inverse step": inverse_step,
+    }
+    out = {name: cs.eager_graph_turns(torch, name, fn)["secs"] for name, fn in cells.items()}
+    print("GRAD_AB " + json.dumps(out), flush=True)
+
+
+def grad_ab(torch, render_image, parse_scene_file, RenderOptions):
+    import json
+    import os
+
+    parent = Path(sys.argv[sys.argv.index("--grad-ab") + 1]).resolve()
+    if not (parent / "take_tpu_torch" / "grad.py").is_file():
+        raise RuntimeError(f"{parent} holds no take_tpu_torch tree")
+    runs = defaultdict(lambda: defaultdict(list))
+    for label, tree in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "prof_room.py"), "--grad-worker", str(tree)], cwd=tree,
+                           capture_output=True, text=True, timeout=900, env={**os.environ, "PYTHONPATH": str(tree)})
+        lines = [x for x in r.stdout.splitlines() if x.startswith("GRAD_AB ")]
+        if r.returncode or not lines:
+            raise RuntimeError(f"the {label} worker failed ({r.returncode}): {r.stderr[-3000:]}")
+        got = json.loads(lines[-1][len("GRAD_AB "):])
+        print(f"[grad-ab {label}] {time.perf_counter() - t0:.1f} s: {json.dumps(got)}", flush=True)
+        for cell, modes in got.items():
+            for mode, v in modes.items():
+                runs[cell][f"{label} {mode}"].extend(v)
+    for cell, modes in runs.items():
+        modes["parent"] = modes.pop("parent eager") + modes.pop("parent graph")  # op by op in both modes
+        print(f"[grad-ab {cell}] median s: " + "; ".join(f"{m} {statistics.median(v):.4f} (n {len(v)}, "
+                                                          f"{min(v):.4f}-{max(v):.4f})" for m, v in modes.items()),
+              flush=True)
+
+
+def scatter_ab(torch, render_image, parse_scene_file, RenderOptions):
+    """--scatter: the backward of a table gather (index_add_ of 2^20 lanes'
+    cotangents into a table of R rows x C columns, uniform random rows), by
+    variant: float32 (the atomics' order shows), float64 rounded once, and
+    each with the lanes spread over 64 groups of rows (lane % 64) summed
+    after. Per variant: ms (CUDA events, median of 20 after 3), the largest
+    difference of 5 runs from the float64 sum, over the table's largest
+    magnitude, and whether the 5 runs are equal bit for bit."""
+    n = 1 << 20
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def grouped(g, idx, rows, dtype, k=64):
+        slot = torch.arange(idx.shape[0], device="cuda") % k * rows + idx
+        acc = g.new_zeros((k * rows, g.shape[1]), dtype=dtype).index_add_(0, slot, g.to(dtype))
+        return acc.view(k, rows, g.shape[1]).sum(0).float()
+
+    variants = {
+        "f32": lambda g, idx, rows: g.new_zeros((rows, g.shape[1])).index_add_(0, idx, g),
+        "f64": lambda g, idx, rows: g.new_zeros((rows, g.shape[1]), dtype=torch.float64).index_add_(
+            0, idx, g.double()).float(),
+        "f32 x64": lambda g, idx, rows: grouped(g, idx, rows, torch.float32),
+        "f64 x64": lambda g, idx, rows: grouped(g, idx, rows, torch.float64),
+    }
+    for rows, cols in ((8, 24), (32, 3), (256, 3), (1 << 16, 3)):
+        idx = torch.randint(0, rows, (n,), device="cuda", generator=gen)
+        g = torch.rand((n, cols), device="cuda", generator=gen)
+        ref = torch.zeros((rows, cols), dtype=torch.float64, device="cuda").index_add_(0, idx, g.double())
+        scale = float(ref.abs().max())
+        out = []
+        for name, fn in variants.items():
+            runs = [fn(g, idx, rows) for _ in range(5)]
+            err = max(float((r.double() - ref).abs().max()) for r in runs) / scale
+            same = all(torch.equal(r, runs[0]) for r in runs)
+            for _ in range(3):
+                fn(g, idx, rows)
+            ms = []
+            for _ in range(20):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(g, idx, rows)
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            out.append(f"{name} {statistics.median(ms):.4f} ms, off {err:.3e} of scale, runs equal {same}")
+        print(f"[scatter {n} lanes into {rows}x{cols}] " + "; ".join(out), flush=True)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: no CUDA device")
+    if "--grad-worker" in sys.argv:  # the tree to import take_tpu_torch from, ahead of this one
+        sys.path.insert(0, str(Path(sys.argv[sys.argv.index("--grad-worker") + 1]).resolve()))
+        return grad_worker(torch)
     sys.path.insert(0, str(ROOT))
     from take_tpu_torch.render import render_image
     from take_tpu_torch.scene.parse_xml import parse_scene_file
@@ -1110,7 +1277,7 @@ def main():
     args = sys.argv[1:]
     run = (textured if "--textured" in args else k3 if "--k3" in args else brute_ab if "--brute" in args
            else cluster_ab if "--cluster" in args else sweep_ab if "--sweep" in args else policy if "--policy" in args
-           else grad_modes if "--grad" in args else room)
+           else grad_ab if "--grad-ab" in args else scatter_ab if "--scatter" in args else grad_modes if "--grad" in args else room)
     run(torch, render_image, parse_scene_file, RenderOptions)
 
 

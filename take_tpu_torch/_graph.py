@@ -1,14 +1,26 @@
 """Captured CUDA graphs, one per compile key: the port's counterpart of the
-executable cache of a jitted function (take_tpu/render.py::_render_pass_jit,
-a `jax.jit` with static arguments).
+executable cache of a jitted function (take_tpu/render.py::_render_pass_jit
+and take_tpu/grad.py::render_loss_grad, each a `jax.jit` with static
+arguments).
 
-`run(key, hold, body, inputs)` returns `body(*inputs)` computed by the graph
-captured for `key`. At a key's first call, `body` runs once on a side stream
-(a warm-up: it builds the kernels, `_lib()`, and cuBLAS's workspace), then
-runs again under capture, reading static copies of `inputs`; the graph's
-output is the tensor that call returned. On every call the inputs are copied
-into the static buffers, the graph replays on the current stream, and a
-clone of its output is returned, since the next replay writes over it.
+`run(key, hold, body, inputs, params)` returns `body(*inputs, *params)`
+computed by the graph captured for `key`. At a key's first call, `body` runs
+once on a side stream (a warm-up: it builds the kernels, `_lib()`, and
+cuBLAS's workspace), then runs again under capture, reading static copies
+of `inputs` and `params`; the graph's output is the tensor, or the tuple of
+tensors (and Nones), that call returned. On every call the inputs and
+params are copied into the static buffers, the graph replays on the current
+stream, and a clone of each output is returned, since the next replay
+writes over it.
+
+Without `params` the body runs under inference mode (a render pass). With
+them it runs with autograd on: each param's static buffer is a leaf that
+requires grad, so a body that calls `torch.autograd.grad` on them (a
+gradient pass, forward and backward) records its backward's kernels into the
+same graph, on the capturing stream, as torch.cuda.make_graphed_callables
+does. New param values are copied into the leaves (under no_grad) before
+each replay, so the graph gives the gradient at the values of this call, as
+a jitted function takes new parameter values without a new compile.
 
 Every graph of a device draws on one memory pool. That is safe because
 graphs replay one at a time on one stream and each output is cloned at once:
@@ -44,8 +56,8 @@ class Captured:
     """One key's graph, its static buffers and what it counts."""
 
     graph: object  # torch.cuda.CUDAGraph
-    inputs: list  # the static input buffers the graph reads
-    output: object  # the tensor the graph writes
+    inputs: list  # the static input and param buffers the graph reads
+    output: object  # the tensor, or tuple of tensors (and Nones), the graph writes
     launches: dict  # kernel launches of one replay, by _launch.LAUNCHES key
     hold: object  # what the graph reads and must outlive it (the scene)
     capture_s: float  # host seconds to record the body
@@ -74,9 +86,10 @@ def uncounted(fn):
     return out, delta
 
 
-def _capture(body, inputs, hold):
+def _capture(body, inputs, params, hold):
     device = inputs[0].device
     static = [x.clone() for x in inputs]  # outside the pool
+    static += [p.detach().clone().requires_grad_(True) for p in params]
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -97,24 +110,31 @@ def _capture(body, inputs, hold):
     return Captured(graph, static, output, launches, hold, t1 - t0, time.perf_counter() - t1)
 
 
-def run(key, hold, body, inputs):
-    """body(*inputs) by the graph captured for `key` (captured now if the
-    key is new). `inputs` are tensors on one CUDA device whose shapes and
-    dtypes the key fixes; `hold` is kept with the graph."""
+def run(key, hold, body, inputs, params=()):
+    """body(*inputs, *params) by the graph captured for `key` (captured now
+    if the key is new). `inputs` and `params` are tensors on one CUDA
+    device whose shapes and dtypes the key fixes; with `params` the body
+    runs with autograd on, each param a leaf that requires grad. `hold` is
+    kept with the graph."""
     device = inputs[0].device
-    with torch.cuda.device(device), torch.inference_mode():
+    mode = torch.enable_grad() if params else torch.inference_mode()
+    with torch.cuda.device(device), mode:
         entry = _CACHE.get(key)
         if entry is None:
-            entry = _CACHE[key] = _capture(body, inputs, hold)
+            entry = _CACHE[key] = _capture(body, inputs, params, hold)
             while len(_CACHE) > MAX_GRAPHS:
                 _CACHE.popitem(last=False)
         else:
             _CACHE.move_to_end(key)
-            for buf, x in zip(entry.inputs, inputs):
-                buf.copy_(x)
+            with torch.no_grad():
+                for buf, x in zip(entry.inputs, [*inputs, *params]):
+                    buf.copy_(x)
         entry.graph.replay()
     add_launches(entry.launches)
-    return entry.output.clone()  # in the caller's mode: not an inference tensor outside inference_mode
+    # clones in the caller's mode: not inference tensors outside inference_mode
+    if isinstance(entry.output, tuple):
+        return tuple(None if x is None else x.clone() for x in entry.output)
+    return entry.output.clone()
 
 
 def captured():

@@ -15,9 +15,10 @@ with bench.py's keys:
     loss gradient of cbox at 1920x1080, 1 spp, d4, grad_mode "replay",
     against a zero target, in bands of 2^18 pixels (one band first as a
     warm-up, then every band timed, one host sync a band for the sum of
-    squares of the gradient's float tables); rays count forward and replay
-    over the paths traced (the last band is shorter: torch needs no wrap
-    padding to keep one compiled shape);
+    squares of the gradient's float tables; the last band padded to a full
+    band with pixel 0, as bench.py pads it, so on the card every band
+    replays one graph); rays count forward and replay over the paths
+    traced, padding included, as bench.py counts them;
   * `kernels_onchip_ok`: every kernel route against the brute sweep's
     winner on a 3000-triangle soup with a BVH and 1024 seeded rays (K3, K4
     and K6 closest hit: the prim on every ray; K3, K5 and K6 any hit: prim
@@ -161,31 +162,38 @@ def _sumsq(g):
 
 def banded_grad(scene, width=GRAD_SIZE[0], height=GRAD_SIZE[1], band=BAND, max_depth=MAX_DEPTH):
     """The replay gradient of the frame at width x height, 1 spp, in bands
-    of `band` pixels against a zero target, after one warm-up band. Returns
-    {seconds, mrays, finite, sumsq, losses, bands}: the timed bands' seconds,
-    forward + replay Mrays/s over the paths traced, and the sum over bands
-    of each band's gradient's sum of squares (one host sync a band)."""
+    of `band` pixels against a zero target, after one warm-up band. The
+    last band is padded to a full band with pixel 0, as bench.py pads it
+    (its "wrap-pad"), so every band has one shape (on the card, one graph
+    key). Returns {seconds, mrays, finite, sumsq, losses, bands, grads}:
+    the timed bands' seconds, forward + replay Mrays/s over the paths
+    traced (the padding's too, as bench.py counts them), the sum over bands
+    of each band's gradient's sum of squares (one host sync a band), and
+    each band's Scene-shaped gradient."""
     scene = with_camera(scene, width, height)
     dev = scene.background.device
     opts = RenderOptions(spp=1, max_depth=max_depth, seed=0, grad_mode="replay")
     n_pix = width * height
-    first = min(band, n_pix)
-    _, g = grad.render_loss_grad(scene, opts, torch.arange(first, dtype=torch.int32, device=dev),
-                                 torch.zeros((first, 3), device=dev), 1)
+    band = min(band, n_pix)
+    target = torch.zeros((band, 3), device=dev)
+    _, g = grad.render_loss_grad(scene, opts, torch.arange(band, dtype=torch.int32, device=dev), target, 1)
     float(_sumsq(g))
     sync(dev)
     t0 = time.perf_counter()
-    sumsq, losses = 0.0, []
+    sumsq, losses, grads = 0.0, [], []
     for lo in range(0, n_pix, band):
         pix = torch.arange(lo, min(lo + band, n_pix), dtype=torch.int32, device=dev)
-        loss, g = grad.render_loss_grad(scene, opts, pix, torch.zeros((pix.shape[0], 3), device=dev), 1)
+        if pix.shape[0] < band:  # one shape: pad with pixel 0
+            pix = torch.cat([pix, torch.zeros(band - pix.shape[0], dtype=torch.int32, device=dev)])
+        loss, g = grad.render_loss_grad(scene, opts, pix, target, 1)
+        grads.append(g)
         s, loss = torch.stack([_sumsq(g), loss]).tolist()
         sumsq += s
         losses.append(loss)
     dt = time.perf_counter() - t0
-    rays = n_pix * (1 + 2 * (max_depth + 1)) * 2  # forward + replay
+    rays = len(losses) * band * (1 + 2 * (max_depth + 1)) * 2  # forward + replay
     return {"seconds": dt, "mrays": rays / dt / 1e6, "finite": bool(np.isfinite(sumsq)), "sumsq": sumsq,
-            "losses": losses, "bands": len(losses)}
+            "losses": losses, "bands": len(losses), "grads": grads}
 
 
 def soup_scene(n_tri, seed=0, spread=10.0, device="cuda"):

@@ -17,7 +17,7 @@ Primitive semantics mirror the reference:
 
 import torch
 
-from take_tpu_torch.core.math import C_PI, C_TWOPI, gather_rows, normalize
+from take_tpu_torch.core.math import C_PI, C_TWOPI, add_rows, gather_rows, normalize
 from take_tpu_torch.geometry import brute
 from take_tpu_torch.scene.types import (
     ATTR_DIM,
@@ -133,7 +133,8 @@ class _BruteClosest(torch.autograd.Function):
     module (to the plain twin) is honoured. The backward is plain torch, as
     the JAX package's is XLA (`_hybrid_bwd`; it has no backward kernel):
     the EMIT cotangent of `attrs` is added into `tri_attr[prim, EMIT:+3]`
-    for lanes that hit, and every other column gets none. It gives the rays
+    for lanes that hit (core.math.add_rows: in float64, the same sum every
+    run), and every other column gets none. It gives the rays
     no cotangent: every ray origin and direction is made from the camera,
     from detached sampled directions (integrator/path_tracer.py) and from
     hit points on geometry that is constant under AD (triangles and, here,
@@ -157,7 +158,7 @@ class _BruteClosest(torch.autograd.Function):
             hit = (prim >= 0)[:, None]
             g_emit = torch.where(hit, g_attrs[:, ATTR_EMIT : ATTR_EMIT + 3], 0.0)
             g_attr = g_attrs.new_zeros((ctx.n_rows, ATTR_DIM))
-            g_attr[:, ATTR_EMIT : ATTR_EMIT + 3].index_add_(0, prim.clamp(min=0).long(), g_emit)
+            g_attr[:, ATTR_EMIT : ATTR_EMIT + 3] = add_rows(ctx.n_rows, prim.clamp(min=0).long(), g_emit)
         return None, g_attr, None, None, None, None, None
 
 

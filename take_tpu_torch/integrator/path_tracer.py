@@ -20,7 +20,8 @@ JAX package's extensions).
 
 `trace_mis` is differentiable by autograd through its loop (grad.py's "ad"
 mode); `trace_mis_replay` computes the same estimator with an early exit
-and a path-replay backward (grad.py's "replay" mode, the module's end).
+(every trip under a CUDA graph capture) and a path-replay backward (grad.py's
+"replay" mode, the module's end).
 Primal renders run under torch.inference_mode() (render.py).
 """
 
@@ -363,8 +364,9 @@ def trace_query_counts(scene: Scene, options: RenderOptions, ro, rd, streams):
 # ---------------------------------------------------------------------------
 #
 # trace_mis_replay computes trace_mis's estimator with a loop that stops once
-# every lane is dead (one host sync per bounce, the JAX while_loop's
-# condition), and differentiates it by PATH REPLAY (take_tpu's
+# every lane is dead (the JAX while_loop's condition, `_running`: one host
+# sync per bounce op by op; every trip inside a CUDA graph capture), and
+# differentiates it by PATH REPLAY (take_tpu's
 # path_tracer.py:537-731): the forward keeps only its inputs; the backward
 # replays the bounce loop with the same RNG counters and takes each bounce's
 # vector-Jacobian product on its own, so backward memory is O(wavefront),
@@ -388,12 +390,28 @@ def trace_query_counts(scene: Scene, options: RenderOptions, ro, rd, streams):
 # the scan loop to float precision.
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is recording a graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def _running(active) -> bool:
+    """The replay loops' condition before each trip: take_tpu's while_loop
+    condition, jnp.any(active), read on the host (one sync) op by op. A
+    capture cannot read it, so under one every trip of the static bound
+    (max_depth + 1) runs: the same values, since each trip is masked per
+    lane by `active` (a dead lane's trip adds c = 0 and multiplies by w =
+    1, as in trace_mis's scan); only the work of trips whose every lane is
+    dead is spent."""
+    return _capturing() or bool(active.any())
+
+
 def _replay_fwd_loop(scene: Scene, options: RenderOptions, ro, rd, streams):
     """trace_mis's loop, stopping as soon as no lane is active."""
     radiance, state = _camera_vertex(scene, ro, rd)
     throughput = torch.ones_like(ro)
     for i in range(options.max_depth + 1):
-        if not bool(state[3].any()):
+        if not _running(state[3]):
             break
         state, c, w = _bounce_step(scene, streams, i, state)
         state, c, w = rr_step(options, streams, i, state, c, w, throughput)
@@ -453,7 +471,7 @@ class _Replay(torch.autograd.Function):
         state, T = state0, torch.ones_like(ro)
         with torch.no_grad():
             for i in range(D):
-                if not bool(state[3].any()):
+                if not _running(state[3]):
                     break
                 state, c, w = _bounce_step(scene, streams, i, state)
                 state, c, w = rr_step(options, streams, i, state, c, w, T)
@@ -469,7 +487,7 @@ class _Replay(torch.autograd.Function):
             S = cs[i] + ws[i] * S
         state, T = state0, torch.ones_like(ro)
         for i in range(D):
-            if not bool(state[3].any()):
+            if not _running(state[3]):
                 break
             with torch.enable_grad():
                 new_state, c, w = _bounce_step(scene, streams, i, state)

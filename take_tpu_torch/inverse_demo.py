@@ -8,11 +8,15 @@ back wall, boxes) reflectance and the light's intensity scale are unknown.
 The target is rendered at the true parameters (512 spp, seed 3);
 optimisation starts from gray walls and half the light and runs Adam (lr
 2e-2, torch.optim.Adam in place of optax's adam: both eps 1e-8 with bias
-correction) on an L2 image loss through grad.render_radiance (32 spp a
+correction) on an L2 image loss through grad.render_loss_grad (32 spp a
 step, seed 11, d4). Albedos live on a sigmoid and the light scale on an
 exp; each step maps the raw parameters into the pristine base scene through
 scene/edit.py, and draws a fresh sample window (step i starts at sample
-i * spp), so the loss is a fresh Monte Carlo estimate each step.
+i * spp), so the loss is a fresh Monte Carlo estimate each step. On the
+card the loss and its gradient come from grad.render_loss_grad (take_tpu's
+script jits value_and_grad of the same mean), each step one captured
+graph's replay, carried into the raw parameters by grad.backward
+(loss_grad).
 
 Prints one JSON record (the JAX script's keys: the loss curve every 10
 steps, the first loss and the mean of the last 10, true and recovered
@@ -35,7 +39,7 @@ import torch
 from take_tpu_torch.bench import card, sync
 from take_tpu_torch.core.camera import Camera
 from take_tpu_torch.geometry import _launch
-from take_tpu_torch.grad import render_radiance
+from take_tpu_torch import grad
 from take_tpu_torch.scene import edit
 from take_tpu_torch.scene.build import SceneBuilder
 from take_tpu_torch.scene.types import MAT_DIFFUSE, RenderOptions
@@ -125,18 +129,42 @@ def apply(base, params):
     return edit.with_light_intensity_scale(s, torch.exp(params["log_light"]))
 
 
+def target_image(base, pix, target_spp=TARGET_SPP):
+    """The target: the base scene's radiance at the true parameters
+    (`target_spp` samples, seed 3), [P, 3]."""
+    with torch.no_grad():
+        return grad.render_radiance(apply(base, raw(TRUE, base.background.device)),
+                                    RenderOptions(spp=1, max_depth=DEPTH, seed=TARGET_SEED), pix, 0, target_spp)
+
+
+def loss_grad(base, params, pix, target, sample0, spp=SPP):
+    """One step's loss, mean((img - target)^2) over `spp` samples from
+    `sample0`, its gradient carried into the raw parameters' .grad. On the
+    card (grad.graphed) by grad.render_loss_grad, whose pass replays one
+    captured graph, then grad.backward; op by op by autograd through the
+    tables the parameters reach alone (render_loss_grad's leaves on every
+    float table cost about a third more there). Returns the loss."""
+    s = apply(base, params)
+    options = RenderOptions(spp=1, max_depth=DEPTH, seed=SEED)
+    if grad.graphed(pix):
+        loss, g = grad.render_loss_grad(s, options, pix, target, spp, sample0=sample0)
+        grad.backward(s, g)
+        return loss
+    # divided by a tensor on the device, as render_loss_grad divides: by a host
+    # number the card multiplies by its reciprocal, an ulp off
+    denom = torch.full((), target.numel(), dtype=torch.float32, device=pix.device)
+    loss = torch.sum((grad.render_radiance(s, options, pix, sample0, spp) - target) ** 2) / denom
+    loss.backward()
+    return loss.detach()
+
+
 def run(steps=STEPS, spp=SPP, res=RES, target_spp=TARGET_SPP, device="cuda", log_every=50):
     """The demo. Returns (the record, the raw parameters after the last
     step, the loss of each step)."""
     base = cornell_box(res, res).build(device=device)
     pix = torch.arange(res * res, dtype=torch.int32, device=device)
 
-    def render(params, sample0, n, seed):
-        return render_radiance(apply(base, params), RenderOptions(spp=1, max_depth=DEPTH, seed=seed), pix,
-                               sample0, n)
-
-    with torch.no_grad():
-        target = render(raw(TRUE, device), 0, target_spp, TARGET_SEED)
+    target = target_image(base, pix, target_spp)
     params = {k: v.requires_grad_(True) for k, v in raw(INIT, device).items()}
     opt = torch.optim.Adam(list(params.values()), lr=LR)
     losses, finite = [], True
@@ -145,11 +173,10 @@ def run(steps=STEPS, spp=SPP, res=RES, target_spp=TARGET_SPP, device="cuda", log
     t0 = time.perf_counter()
     for i in range(steps):
         opt.zero_grad()
-        loss = torch.mean((render(params, i * spp, spp, SEED) - target) ** 2)
-        loss.backward()
+        loss = loss_grad(base, params, pix, target, i * spp, spp)
         finite &= all(bool(torch.isfinite(p.grad).all()) for p in params.values())
         opt.step()
-        losses.append(float(loss.detach()))
+        losses.append(float(loss))
         if log_every and (i % log_every == 0 or i == steps - 1):
             print(f"step {i}: loss {losses[-1]:.6f}", flush=True)
     sync(device)

@@ -16,11 +16,13 @@ and, since a graph reads fixed addresses, the scene's tables (address,
 shape, strides, dtype, version: a table written in place or replaced is a
 new key; the graph holds the scene) and the route a query takes at call
 time (`traverse.FORCE_CLUSTER`/`FORCE_SWEEP` and the kernel functions, so
-a patched route never replays another's graph). The scan integrators
-(`GRAPH_INTEGRATORS`) are captured under inference mode or no_grad; a pass
-that autograd records, the loops that sync the host (`mis_replay`,
-`mis_wavefront`), every pass inside `eager()` and every pass on the CPU run
-op by op. `PASSES` counts both kinds; `clear_cache()` drops every graph.
+a patched route never replays another's graph). The scan integrators and
+`mis_replay` (`GRAPH_INTEGRATORS`; the replay loop runs every trip under a
+capture) are captured under inference mode or no_grad; a pass that autograd
+records, the refill loop (`mis_wavefront`, which syncs the host), every pass
+inside `eager()` and every pass on the CPU run op by op. `PASSES` counts
+both kinds; `clear_cache()` drops every graph, the gradient passes' too
+(grad.py).
 """
 
 import contextlib
@@ -40,8 +42,8 @@ from take_tpu_torch.integrator.wavefront import trace_wavefront
 from take_tpu_torch.lights import envmap
 from take_tpu_torch.scene.types import RenderOptions, Scene
 
-# The integrators whose pass makes no host sync, so that it can be captured.
-GRAPH_INTEGRATORS = ("mis", "mis_scan", "one_sample_mis", "one_sample_mis_power", "raw")
+# The integrators whose pass makes no host sync under a capture, so that it can be captured.
+GRAPH_INTEGRATORS = ("mis", "mis_scan", "mis_replay", "one_sample_mis", "one_sample_mis_power", "raw")
 # Module functions a pass looks up at call time; each is part of the key.
 ROUTE = tuple((m, name) for m in (brute, packet, cluster, sweep) for name in ("closest", "occluded")) + (
     (envmap, "_dir_to_uv"), (envmap, "_uv_to_dir"))
@@ -90,10 +92,11 @@ def checks_enabled() -> bool:
 
 @contextlib.contextmanager
 def eager():
-    """Run every pass op by op inside this context: the counterpart of
-    jax.disable_jit(). Needed where a pass cannot be captured (a route
-    patched to plain twins that sync the host, e.g. `packet_plain`) or must
-    run its Python each time (a patch that records its arguments). Nests."""
+    """Run every pass op by op inside this context, render passes and
+    gradient passes (grad.py) alike: the counterpart of jax.disable_jit().
+    Needed where a pass cannot be captured (a route patched to plain twins
+    that sync the host, e.g. `packet_plain`) or must run its Python each
+    time (a patch that records its arguments). Nests."""
     _EAGER[0] += 1
     try:
         yield
@@ -101,8 +104,14 @@ def eager():
         _EAGER[0] -= 1
 
 
+def in_eager() -> bool:
+    """Whether an eager() context is open."""
+    return _EAGER[0] > 0
+
+
 def clear_cache():
-    """Drop every captured pass graph: the counterpart of jax.clear_caches()."""
+    """Drop every captured pass graph, render and gradient: the counterpart
+    of jax.clear_caches()."""
     _graph.clear()
 
 
@@ -128,21 +137,39 @@ def _pass(scene: Scene, options: RenderOptions, pixel_idx, sample0, width: int, 
     return radiance.reshape(P, n_samples, 3).sum(dim=1)
 
 
-def _tables(obj):
+def table_facts(obj, param_device=None):
     """The tables of a scene (or of one of its groups) as hashable facts:
     each tensor's address, shape, strides, dtype, device and version (-1 for
-    an inference tensor, which keeps none), groups nested, the rest as is."""
+    an inference tensor, which keeps none), groups nested, the rest as is.
+    With `param_device`, each float scene table on that device (a gradient
+    pass's input, which its graph copies into leaves of its own at every
+    call: grad.py) is its shape, dtype and device alone."""
     out = []
     for f in dataclasses.fields(obj):
         x = getattr(obj, f.name)
         if isinstance(x, torch.Tensor):
-            out.append((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype, x.device,
-                        -1 if x.is_inference() else x._version))
+            if f.compare and x.is_floating_point() and x.device == param_device:
+                out.append((tuple(x.shape), x.dtype, x.device))
+            else:
+                out.append((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype, x.device,
+                            -1 if x.is_inference() else x._version))
         elif dataclasses.is_dataclass(x) and not type(x).__dataclass_params__.frozen:
-            out.append(_tables(x))
+            out.append(table_facts(x, param_device))
         else:
             out.append(x)
     return tuple(out)
+
+
+def route():
+    """The route a query takes now: the traversal flags and the kernel
+    functions of ROUTE, looked up at call time."""
+    return (traverse.FORCE_CLUSTER, traverse.FORCE_SWEEP, *(getattr(m, name) for m, name in ROUTE))
+
+
+def key_options(options: RenderOptions) -> RenderOptions:
+    """The options as a compile key holds them: spp and max_rays_per_pass,
+    which only the host's pass loop reads, normalized."""
+    return dataclasses.replace(options, spp=1, max_rays_per_pass=RenderOptions.max_rays_per_pass)
 
 
 def pass_key(scene: Scene, options: RenderOptions, pixel_idx, width: int, n_samples: int):
@@ -150,15 +177,13 @@ def pass_key(scene: Scene, options: RenderOptions, pixel_idx, width: int, n_samp
     it (spp and max_rays_per_pass are read by the host's pass loop only, so
     a 1-spp warm-up and a 4096-spp render share a key), with the scene's
     tables and the route the pass takes now."""
-    key_options = dataclasses.replace(options, spp=1, max_rays_per_pass=RenderOptions.max_rays_per_pass)
-    route = (traverse.FORCE_CLUSTER, traverse.FORCE_SWEEP, *(getattr(m, name) for m, name in ROUTE))
-    return (key_options, width, n_samples, tuple(pixel_idx.shape), pixel_idx.dtype, pixel_idx.device,
-            _tables(scene), route)
+    return (key_options(options), width, n_samples, tuple(pixel_idx.shape), pixel_idx.dtype, pixel_idx.device,
+            table_facts(scene), route())
 
 
 def graphed(options: RenderOptions, pixel_idx) -> bool:
     """Whether render_pass replays a captured graph for this pass."""
-    return (pixel_idx.is_cuda and not _EAGER[0] and options.integrator in GRAPH_INTEGRATORS
+    return (pixel_idx.is_cuda and not in_eager() and options.integrator in GRAPH_INTEGRATORS
             and not torch.is_grad_enabled())
 
 
@@ -178,8 +203,7 @@ def render_pass(scene: Scene, options: RenderOptions, pixel_idx, sample0, width:
         return _pass(scene, options, pixel_idx, s0, width, n_samples)
     PASSES["graph"] += 1
     key = pass_key(scene, options, pixel_idx, width, n_samples)
-    key_options = key[0]
-    return _graph.run(key, scene, lambda pix, s: _pass(scene, key_options, pix, s, width, n_samples),
+    return _graph.run(key, scene, lambda pix, s: _pass(scene, key[0], pix, s, width, n_samples),
                       [pixel_idx, s0])
 
 

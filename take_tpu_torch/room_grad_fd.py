@@ -10,7 +10,9 @@ for the three parameters room has, perturbed as the JAX script's
   * albedo0, albedo1: materials.attr[m, MATTR_TEX_VALUE:+3] += d;
   * emission: lights.attr[:, LATTR_INTENSITY:+3] *= 1 + d (the lights'
     table alone, as the JAX script scales it: NEE's radiance).
-Per parameter: `grad_replay` and `grad_ad` (grad_mode "replay" and "ad"),
+Per parameter: `grad_replay` and `grad_ad` (grad_mode "replay" and "ad",
+through grad.partial_loss_grad: on the card one captured graph per mode,
+replayed for every parameter, since only float tables' values change),
 `fd` (central, eps 1e-2, common random numbers: both forwards take the same
 seed and sample window), the JAX script's two ratios, and `t_replay_s`,
 `t_ad_s` (synchronised, after one warm-up gradient in each mode) with the
@@ -38,9 +40,9 @@ from pathlib import Path
 
 import torch
 
+from take_tpu_torch import grad
 from take_tpu_torch.bench import card, sync
 from take_tpu_torch.geometry import _launch
-from take_tpu_torch.grad import render_radiance
 from take_tpu_torch.scene import types as T
 from take_tpu_torch.scene.parse_xml import parse_scene_file
 
@@ -83,19 +85,34 @@ def perturbed(scene, which, d):
 def mean_radiance(scene, which, d, mode, pix, samples=SAMPLES, depth=DEPTH, seed=SEED):
     """mean(render_radiance) of the band with `which` moved by d."""
     options = T.RenderOptions(spp=1, max_depth=depth, seed=seed, grad_mode=mode)
-    return render_radiance(perturbed(scene, which, d), options, pix, 0, samples).mean()
+    return grad.render_radiance(perturbed(scene, which, d), options, pix, 0, samples).mean()
+
+
+def band_grad(scene, which, mode, pix, samples=SAMPLES, depth=DEPTH, seed=SEED):
+    """(the band's mean radiance, its Scene-shaped gradient, d mean / d d at
+    0) with `which` moved by d, under `mode`: grad.partial_loss_grad's
+    linear loss with unit weights (take_tpu jits jax.grad of the mean),
+    whose passes on the card replay captured graphs, carried into d by
+    grad.backward."""
+    dev = pix.device
+    d = torch.zeros((), device=dev, requires_grad=True)
+    s = perturbed(scene, which, d)
+    options = T.RenderOptions(spp=1, max_depth=depth, seed=seed, grad_mode=mode)
+    ones = torch.ones((pix.shape[0], 3), dtype=torch.float32, device=dev)
+    mean, g = grad.partial_loss_grad(s, options, pix, ones, samples, mode, ones.numel(), loss="linear")
+    grad.backward(s, g)
+    return mean, g, d.grad
 
 
 def gradient(scene, which, mode, pix, **kw):
-    """(d mean / d d at 0, seconds, peak bytes on the card) under `mode`."""
+    """(d mean / d d at 0, seconds, peak bytes on the card) under `mode`
+    (band_grad)."""
     dev = pix.device
-    d = torch.zeros((), device=dev, requires_grad=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     sync(dev)
     t0 = time.perf_counter()
-    mean_radiance(scene, which, d, mode, pix, **kw).backward()
-    g = float(d.grad)
+    g = float(band_grad(scene, which, mode, pix, **kw)[2])
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     return g, dt, peak

@@ -94,9 +94,10 @@ def test_d50_refill_counts_match_take_tpu(monkeypatch):
 
 def test_banded_replay_gradient_matches_take_tpu():
     """cbox at 48x27, 1 spp, d4, replay, bands of 2^8 pixels (the last one
-    shorter) against a zero target: each band's loss within 1e-5 relative
-    and the sum over bands of the gradient's sum of squares within 1e-4
-    relative of take_tpu's render_loss_grad on the same bands."""
+    padded to a full band with pixel 0, as bench.py pads it) against a zero
+    target: each band's loss within 1e-5 relative and the sum over bands of
+    the gradient's sum of squares within 1e-4 relative of take_tpu's
+    render_loss_grad on the same bands."""
     W, H, band = 48, 27, 1 << 8
     got = bench.banded_grad(_port_cbox(W, H), W, H, band)
     scene = _jax_cbox(W, H)
@@ -104,7 +105,8 @@ def test_banded_replay_gradient_matches_take_tpu():
     losses, sumsq = [], 0.0
     for lo in range(0, W * H, band):
         pix = jnp.arange(lo, min(lo + band, W * H), dtype=jnp.int32)
-        loss, g = jrender_loss_grad(scene, opts, pix, jnp.zeros((pix.shape[0], 3)), 1)
+        pix = jnp.concatenate([pix, jnp.zeros(band - pix.shape[0], jnp.int32)])  # bench.py's padding
+        loss, g = jrender_loss_grad(scene, opts, pix, jnp.zeros((band, 3)), 1)
         losses.append(float(loss))
         sumsq += sum(float(jnp.sum(x * x)) for x in jtu.tree_leaves(g)
                      if hasattr(x, "dtype") and x.dtype == jnp.float32)

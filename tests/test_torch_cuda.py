@@ -894,3 +894,91 @@ def test_uncapturable_route_raises_outside_eager(card, room):
             img = render.render_image(small, opts)
     assert np.isfinite(img).all() and img.mean() > 0
     assert {k for k, v in _launch.LAUNCHES.items() if v} == {"packet_closest_plain", "packet_anyhit_plain"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ad", "replay"])
+@pytest.mark.parametrize("name", ["cbox", "room"])
+def test_gradient_is_the_same_from_run_to_run_on_card(card, request, name, mode):
+    """Two op-by-op gradients (render.eager()) of cbox.xml at 64x64 (K1's
+    backward, the table gathers) and of room at 64x36 (K3's route), 2
+    samples a pixel, d4: the same loss bit for bit and every table within
+    one float32 rounding of the other. The backward's scatter-adds run on
+    atomics in no fixed order; they add in float64 (core.math.gather_rows,
+    intersect._BruteClosest), where a float32 sum would differ by ~1e-5 of
+    a row."""
+    import importlib
+
+    from take_tpu_torch import grad
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    render = importlib.import_module("take_tpu_torch.render")
+    if name == "room":
+        scene = with_res(request.getfixturevalue("room"), 64, 36)
+    else:
+        scene = with_res(parse_scene_file(CBOX, device="cuda"), 64)
+    n = scene.meta.camera.width * scene.meta.camera.height
+    opts = RenderOptions(spp=1, max_depth=4, seed=3, grad_mode=mode)
+    pix = torch.arange(n, dtype=torch.int32, device="cuda")
+    target = torch.full((n, 3), 0.2, device="cuda")
+    with render.eager():
+        (loss1, g1), (loss2, g2) = (grad.render_loss_grad(scene, opts, pix, target, 2) for _ in range(2))
+    assert torch.equal(loss1, loss2)
+    t1, t2 = float_tables(g1), float_tables(g2)
+    assert t1["materials.attr"].abs().max() > 0
+    for key, x in t1.items():
+        torch.testing.assert_close(t2[key], x, rtol=2.0**-23, atol=0.0, msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ad", "replay"])
+@pytest.mark.parametrize("name", ["cbox", "room"])
+def test_graph_gradient_equals_eager_on_card(card, request, name, mode):
+    """render_loss_grad through captured gradient passes (forward and
+    backward in one graph a key) against it op by op (render.eager()):
+    cbox.xml at 64x64 through K1/K2 and room at 64x36 through K3, 2 samples
+    a pixel, d4, in passes of 3/8 of the pixels (two keys). Over 3 steps of
+    changed parameters (the first material's reflectance, the light scale,
+    as scene/edit.py sets them each Adam step): the loss bit for bit, every
+    table within max(2 x its difference between two eager runs, 1e-5 x its
+    largest magnitude) of eager's (scatter-adds use atomics), the same
+    kernel launches, and no capture after the first call."""
+    import importlib
+
+    from take_tpu_torch import _graph, grad
+    from take_tpu_torch.scene import edit
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    render = importlib.import_module("take_tpu_torch.render")
+    if name == "room":
+        scene = with_res(request.getfixturevalue("room"), 64, 36)
+    else:
+        scene = with_res(parse_scene_file(CBOX, device="cuda"), 64)
+    cam = scene.meta.camera
+    n = cam.width * cam.height
+    opts = RenderOptions(spp=1, max_depth=4, seed=3, grad_mode=mode, max_rays_per_pass=2 * (3 * n // 8))
+    pix = torch.arange(n, dtype=torch.int32, device="cuda")
+    target = torch.full((n, 3), 0.2, device="cuda")
+    want = {"packet_closest", "packet_anyhit"} if name == "room" else {"closest", "anyhit"}
+
+    def run(s, eager):
+        with render.eager() if eager else contextlib.nullcontext():
+            _launch.reset_launches()
+            loss, g = grad.render_loss_grad(s, opts, pix, target, 2)
+            torch.cuda.synchronize()
+            return loss, float_tables(g), {k: v for k, v in _launch.LAUNCHES.items() if v}
+
+    render.clear_cache()
+    run(scene, False)
+    graphs = {id(e) for e in _graph.captured()}
+    assert len(graphs) == 2
+    for step in range(3):
+        s = edit.with_material_reflectance(scene, 0, (0.3 + 0.1 * step, 0.5, 0.4))
+        s = edit.with_light_intensity_scale(s, 1.0 + 0.25 * step)
+        (loss_e, e1, launches_e), (_, e2, _), (loss_g, g, launches_g) = run(s, True), run(s, True), run(s, False)
+        assert torch.equal(loss_g, loss_e) and set(launches_g) == want and launches_g == launches_e
+        assert e1["materials.attr"].abs().max() > 0
+        for key, x in e1.items():
+            tol = max(2 * float((e2[key] - x).abs().max()), 1e-5 * float(x.abs().max()))
+            assert float((g[key] - x).abs().max()) <= tol, (step, key)
+    assert {id(e) for e in _graph.captured()} == graphs

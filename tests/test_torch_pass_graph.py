@@ -26,11 +26,12 @@ from torch.utils._pytree import tree_leaves
 from take_tpu.core.camera import Camera as JCamera
 from take_tpu.scene.parse_xml import parse_scene_file as jax_parse
 from take_tpu.scene.types import RenderOptions as JOptions
-from take_tpu_torch import _graph
+from take_tpu_torch import _graph, grad
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.camera import Camera, generate_rays
 from take_tpu_torch.core.math import constant
 from take_tpu_torch.geometry import _launch, brute, cluster, packet, sweep, traverse
+from take_tpu_torch.integrator import path_tracer
 from take_tpu_torch.scene.parse_xml import parse_scene_file
 from take_tpu_torch.scene.types import RenderOptions
 from tests.scenes import cornell_box
@@ -228,9 +229,11 @@ def test_pass_makes_no_host_sync(name, monkeypatch):
     """The body of a pass, for each integrator render_pass captures, with
     and without Russian roulette, on a brute scene with spheres, an envmap
     scene with Disney lobes and a BVH scene (K3's route, then K6's and
-    K4/K5's), makes no op that a capture cannot hold."""
+    K4/K5's), makes no op that a capture cannot hold (mis_replay's loop
+    running every trip, as it does under a capture)."""
     scene = tiny(f"{SCENES}/{name}", 6)
     probe = _HostSyncs()
+    monkeypatch.setattr(path_tracer, "_capturing", lambda: True)
     for module in (brute, packet, cluster, sweep):
         for fn in ("closest", "occluded"):
             monkeypatch.setattr(module, fn, probe.kernel(getattr(module, fn)))
@@ -267,9 +270,12 @@ class FakeGraph:
     with its arguments and outputs; a replay runs the ops again on the same
     tensors and writes each result into the output recorded for it. So it
     replays what was captured, with the values the static inputs hold now,
-    and a value baked into the capture stays baked, as on the card."""
+    and a value baked into the capture stays baked, as on the card. A
+    capture under autograd records the backward's ops too, after the
+    forward's; a replay runs them all with autograd off."""
 
     made = []
+    capturing = False  # whether a fake capture is recording (path_tracer._capturing)
 
     def __init__(self, keep_graph=False):
         self.ops, self.replays, self.instantiated = None, 0, False
@@ -281,19 +287,24 @@ class FakeGraph:
     def replay(self):
         assert self.instantiated
         self.replays += 1
-        for func, args, kwargs, out in self.ops:
-            new = func(*args, **kwargs)
-            for rec, x in zip(tree_leaves(out), tree_leaves(new)):
-                if isinstance(rec, torch.Tensor) and rec.untyped_storage().data_ptr() != \
-                        x.untyped_storage().data_ptr():
-                    rec.copy_(x)
+        with torch.no_grad():  # a graph replays kernels: autograd records nothing
+            for func, args, kwargs, out in self.ops:
+                new = func(*args, **kwargs)
+                for rec, x in zip(tree_leaves(out), tree_leaves(new)):
+                    if isinstance(rec, torch.Tensor) and rec.untyped_storage().data_ptr() != \
+                            x.untyped_storage().data_ptr():
+                        rec.copy_(x)
 
 
 @contextlib.contextmanager
 def fake_capture(graph, pool=None, capture_error_mode="global"):
     graph.ops = []
-    with _Recorder(graph.ops):
-        yield
+    FakeGraph.capturing = True
+    try:
+        with _Recorder(graph.ops):
+            yield
+    finally:
+        FakeGraph.capturing = False
 
 
 class _Stream:
@@ -303,11 +314,14 @@ class _Stream:
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
-    """render_pass takes its graph path on the CPU, with torch.cuda's graph
-    entry points standing in: FakeGraph, fake_capture, streams that do
-    nothing. Yields FakeGraph's list of graphs made."""
-    graphed = render.graphed
+    """render_pass and grad.partial_loss_grad take their graph paths on the
+    CPU, with torch.cuda's graph entry points standing in: FakeGraph,
+    fake_capture (inside which path_tracer._capturing() is true), streams
+    that do nothing. Yields FakeGraph's list of graphs made."""
+    graphed, grad_graphed = render.graphed, grad.graphed
     monkeypatch.setattr(render, "graphed", lambda options, pix: graphed(options, types.SimpleNamespace(is_cuda=True)))
+    monkeypatch.setattr(grad, "graphed", lambda pix: grad_graphed(types.SimpleNamespace(is_cuda=True)))
+    monkeypatch.setattr(path_tracer, "_capturing", lambda: FakeGraph.capturing)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", fake_capture)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: object())
@@ -330,7 +344,7 @@ def counts(fn):
 
 
 @pytest.mark.parametrize("name, integrator", [("cbox/cbox.xml", "mis"), ("mis/mis.xml", "one_sample_mis"),
-                                              ("ibl/ibl.xml", "raw")])
+                                              ("ibl/ibl.xml", "raw"), ("cbox/cbox.xml", "mis_replay")])
 def test_replayed_render_equals_eager(fake_cuda, name, integrator):
     """render_image through captured passes equals it op by op bit for bit,
     over three row bands of three passes (the last band shorter, so a key
@@ -372,9 +386,10 @@ def test_replayed_passes_do_not_alias(fake_cuda):
 
 
 def test_graph_path_only_for_captured_integrators_without_autograd(fake_cuda):
-    """mis_replay and mis_wavefront, which sync the host, a pass autograd
-    records and every pass inside eager() run op by op; eager() nests and
-    restores itself, also when its body raises."""
+    """mis_wavefront, which syncs the host, a pass autograd records and
+    every pass inside eager() run op by op (mis_replay is captured: its
+    loop runs every trip under a capture); eager() nests and restores
+    itself, also when its body raises."""
     scene = tiny(CBOX, 4)
     pix = torch.arange(16, dtype=torch.int32)
 
@@ -386,8 +401,8 @@ def test_graph_path_only_for_captured_integrators_without_autograd(fake_cuda):
     for integrator in render.GRAPH_INTEGRATORS:
         assert kinds(RenderOptions(max_depth=2, integrator=integrator)) == graph
         assert kinds(RenderOptions(max_depth=2, integrator=integrator), grad=True) == eager
-    for integrator in ("mis_replay", "mis_wavefront"):
-        assert kinds(RenderOptions(max_depth=2, integrator=integrator)) == eager
+    assert "mis_replay" in render.GRAPH_INTEGRATORS
+    assert kinds(RenderOptions(max_depth=2, integrator="mis_wavefront")) == eager
     opts = RenderOptions(max_depth=2)
     with render.eager():
         with render.eager():

@@ -1,0 +1,5 @@
+"""The share of the traced window in which no operation ran on the device."""
+
+
+def read(ctx, metric):
+    return 100.0 * (1.0 - ctx.trace["busy_s"] / ctx.trace["window_s"])

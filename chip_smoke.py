@@ -2160,7 +2160,7 @@ def eager_graph_turns(torch, label, fn, compare=None):
     Raises if a call's launches differ from the first eager call's or a
     graph is captured after the first call; then `compare(outs)`, with
     outs {mode: [out of each turn]}, raises on a miss. Returns {first_s,
-    keys: [(the first input's shape, capture s, instantiate s)], captures,
+    keys: [the first input's shape], captures,
     secs: {mode: [s]}, ratio (eager over graph, medians), launches,
     peaks: {mode: bytes}, pool: the graphs' pool bytes}."""
     from take_tpu_torch import _graph
@@ -2176,7 +2176,7 @@ def eager_graph_turns(torch, label, fn, compare=None):
     with render.eager():
         fn()  # a warm eager call: the allocator's blocks for eager calls beside the graphs' pool
     graphs = {id(e) for e in _graph.captured()}
-    keys = [(tuple(e.inputs[0].shape), round(e.capture_s, 4), round(e.instantiate_s, 4)) for e in _graph.captured()]
+    keys = [tuple(e.inputs[0].shape) for e in _graph.captured()]
     secs, launches, peaks, outs = {"eager": [], "graph": []}, {}, {}, {"eager": [], "graph": []}
     for mode in ("eager", "graph", "eager", "graph"):
         with render.eager() if mode == "eager" else contextlib.nullcontext():
@@ -2251,7 +2251,7 @@ def graph_cell(torch, dev, smi, room):
               f"eager image bit for bit; launches a render equal in both modes {r['launches']}; in turns E G E G "
               f"eager {r['secs']['eager']} s, graph {r['secs']['graph']} s; Mrays/s eager {rays / med['eager'] / 1e6:.3f}, "
               f"graph {rays / med['graph'] / 1e6:.3f}, graph/eager speed {r['ratio']:.3f}x; first graph render "
-              f"(captures) {r['first_s']:.4f} s; keys (pixels a pass, capture s, instantiate s) {r['keys']}; peak "
+              f"(captures) {r['first_s']:.4f} s; keys (pixels a pass) {r['keys']}; peak "
               f"allocated eager {r['peaks']['eager'] / 2**30:.3f} GiB, graph {r['peaks']['graph'] / 2**30:.3f} GiB, "
               f"graph pools {r['pool'] / 2**30:.3f} GiB; card: {smi}")
 
@@ -2420,7 +2420,7 @@ def grad_graph_cell(torch, dev, smi, room):
               f"largest difference {worst[0]:.3f} of its limit, in {worst[1]}), launches a call equal in both modes "
               f"{r['launches']}; in turns E G E G eager {r['secs']['eager']} s, graph {r['secs']['graph']} s, "
               f"graph/eager speed {r['ratio']:.3f}x; first graph call (captures) {r['first_s']:.4f} s; captures "
-              f"{r['captures']}, keys (pixels a pass, capture s, instantiate s) {r['keys']}; peak allocated eager "
+              f"{r['captures']}, keys (pixels a pass) {r['keys']}; peak allocated eager "
               f"{r['peaks']['eager'] / 2**30:.3f} GiB, graph {r['peaks']['graph'] / 2**30:.3f} GiB, graph pool "
               f"{r['pool'] / 2**30:.3f} GiB; replay loop trips [run, skipped] op by op {trips}; card: {smi}")
 

@@ -37,7 +37,10 @@ __all__ = [
 
 def load_scene(path, device="cuda", **kwargs):
     """Parse a Mitsuba-XML scene file into a Scene on `device` (the card unless
-    the caller asks for "cpu"; without a card the default raises torch's error)."""
+    the caller asks for "cpu"; without a card the default raises torch's error).
+    Span take.scene.load."""
+    from take_tpu_torch import tracing
     from take_tpu_torch.scene.parse_xml import parse_scene_file
 
-    return parse_scene_file(path, device=device, **kwargs)
+    with tracing.span("take.scene.load"):
+        return parse_scene_file(path, device=device, **kwargs)

@@ -34,6 +34,11 @@ without calling them. So what a capture counts is taken back out of
 `_launch.LAUNCHES` and added in again at every replay: LAUNCHES counts
 what ran (the warm-up ran, and counts).
 
+With tracing on (tracing.py), `run` times its steps as spans
+(take.graph.copy_in, take.graph.replay, take.graph.clone_out; a key's first
+call take.graph.capture, the body's recording, and take.graph.instantiate),
+and the mark kernels are launched once before a capture records them.
+
 A capture or a replay that fails raises; nothing retries eagerly. A
 capture refuses calls that are unsafe under capture from its own thread
 only ("thread_local"), so that other threads' CUDA calls (NCCL's watchdog)
@@ -42,10 +47,10 @@ go on while it records.
 
 import collections
 import dataclasses
-import time
 
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.geometry import _launch
 
 MAX_GRAPHS = 48  # graphs kept, the least recently used dropped first
@@ -60,8 +65,6 @@ class Captured:
     output: object  # the tensor, or tuple of tensors (and Nones), the graph writes
     launches: dict  # kernel launches of one replay, by _launch.LAUNCHES key
     hold: object  # what the graph reads and must outlive it (the scene)
-    capture_s: float  # host seconds to record the body
-    instantiate_s: float  # host seconds of cudaGraphInstantiate
 
 
 _CACHE = collections.OrderedDict()
@@ -93,6 +96,8 @@ def _capture(body, inputs, params, hold):
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
+        if tracing.enabled():
+            tracing.load_marks()
         body(*static)
     torch.cuda.current_stream(device).wait_stream(side)
     if device not in _POOLS:
@@ -103,11 +108,11 @@ def _capture(body, inputs, params, hold):
         with torch.cuda.graph(graph, pool=_POOLS[device], capture_error_mode="thread_local"):
             return body(*static)
 
-    t0 = time.perf_counter()
-    output, launches = uncounted(record)
-    t1 = time.perf_counter()
-    graph.instantiate()
-    return Captured(graph, static, output, launches, hold, t1 - t0, time.perf_counter() - t1)
+    with tracing.span("take.graph.capture"):
+        output, launches = uncounted(record)
+    with tracing.span("take.graph.instantiate"):
+        graph.instantiate()
+    return Captured(graph, static, output, launches, hold)
 
 
 def run(key, hold, body, inputs, params=()):
@@ -126,15 +131,17 @@ def run(key, hold, body, inputs, params=()):
                 _CACHE.popitem(last=False)
         else:
             _CACHE.move_to_end(key)
-            with torch.no_grad():
+            with tracing.span("take.graph.copy_in"), torch.no_grad():
                 for buf, x in zip(entry.inputs, [*inputs, *params]):
                     buf.copy_(x)
-        entry.graph.replay()
+        with tracing.span("take.graph.replay"):
+            entry.graph.replay()
     add_launches(entry.launches)
     # clones in the caller's mode: not inference tensors outside inference_mode
-    if isinstance(entry.output, tuple):
-        return tuple(None if x is None else x.clone() for x in entry.output)
-    return entry.output.clone()
+    with tracing.span("take.graph.clone_out"):
+        if isinstance(entry.output, tuple):
+            return tuple(None if x is None else x.clone() for x in entry.output)
+        return entry.output.clone()
 
 
 def captured():

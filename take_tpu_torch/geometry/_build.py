@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from take_tpu_torch import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "take_tpu_torch"
 
@@ -73,9 +75,11 @@ def build(name: str) -> tuple[Path, float, str]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu, with the C function every
-    source defines declared: `const char* tt_error_string(int)`."""
-    path, _, _ = build(name)
-    lib = ctypes.CDLL(str(path))
+    source defines declared: `const char* tt_error_string(int)`. Span
+    take.kernels.load."""
+    with tracing.span("take.kernels.load"):
+        path, _, _ = build(name)
+        lib = ctypes.CDLL(str(path))
     lib.tt_error_string.argtypes = [ctypes.c_int]
     lib.tt_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,10 +13,14 @@ Primitive semantics mirror the reference:
   * barycentric UV / interpolated UV, interpolated (unflipped) shading
     normal (shape.cpp:88-107),
   * sphere spherical UV via get_sphere_uv (shape.cpp:3-11).
+
+With tracing on, a closest-hit query marks its phases (tracing.mark):
+intersect for the kernel's call, hit for the Hit's assembly after it.
 """
 
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.core.math import C_PI, C_TWOPI, add_rows, gather_rows, normalize
 from take_tpu_torch.geometry import brute
 from take_tpu_torch.scene.types import (
@@ -106,6 +110,7 @@ def intersect_scene(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     Returns:
         Hit SoA with [N] leading axis.
     """
+    tracing.mark("intersect")
     if scene.bvh is not None:
         from take_tpu_torch.geometry.traverse import bvh_intersect
 
@@ -120,6 +125,7 @@ def intersect_scene(scene: Scene, ro, rd, tmin, tmax) -> Hit:
         tri_hit = torch.zeros(N, dtype=torch.bool, device=ro.device)
         attrs = ro.new_zeros((N, ATTR_DIM))
         u = v = ro.new_zeros(N)
+    tracing.mark("hit")
     return _merge_and_shade(scene, ro, rd, tmin, tmax, tri_t, tri_hit, attrs, u, v)
 
 

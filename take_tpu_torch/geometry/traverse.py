@@ -23,6 +23,7 @@ and a room render is faster without it.
 
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.core.math import gather_rows
 from take_tpu_torch.geometry import cluster, packet, sweep
 from take_tpu_torch.scene.types import ATTR_EMIT, Hit, Scene
@@ -53,10 +54,11 @@ def _traverse_backend(scene: Scene, ro, rd, tmin, tmax):
 
 def bvh_intersect(scene: Scene, ro, rd, tmin, tmax) -> Hit:
     """Closest-hit query of a BVH scene; the Hit is assembled from the
-    winners' attribute rows, as on the brute path."""
+    winners' attribute rows, as on the brute path (tracing phase hit)."""
     from take_tpu_torch.geometry.intersect import _merge_and_shade
 
     t, u, v, prim, found = _traverse_backend(scene, ro, rd, tmin, tmax)
+    tracing.mark("hit")
     # the brute path's gradient scope: geometry columns detached, the EMIT
     # slice differentiable (the gather's backward adds into it)
     A, idx = scene.geometry.tri_attr, prim.clamp(min=0).long()

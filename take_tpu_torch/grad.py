@@ -26,12 +26,16 @@ at every call, so new parameter values (an Adam step, a scene/edit.py edit)
 replay the same graph, as a jitted function takes new values without a new
 compile. Inside `render.eager()` and on the CPU every pass runs op by op;
 `PASSES` counts both kinds. `param_grads` is the same body with a linear
-loss, so its passes replay graphs too.
+loss, so its passes replay graphs too. With tracing on (tracing.py), the
+loss gradient, each pass, its key and `backward` are spans, and a pass
+marks its forward's phases, its loss and, under stage "backward", the
+vector-Jacobian products (and path replay's recomputed bounces); the key
+holds the tracing flag.
 """
 
 import torch
 
-from take_tpu_torch import _graph
+from take_tpu_torch import _graph, tracing
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.camera import generate_rays
 from take_tpu_torch.integrator.path_tracer import trace_mis, trace_mis_replay
@@ -58,6 +62,7 @@ def resolve_mode(options: RenderOptions, n_paths: int) -> str:
 def _radiance(scene: Scene, options: RenderOptions, pixel_idx, sample0, n_samples: int, mode: str):
     """[P, 3] mean radiance; `sample0` an int or a 0-d int32 tensor on the
     pixels' device."""
+    tracing.mark("camera")
     cam = scene.meta.camera
     P = pixel_idx.shape[0]
     pix = pixel_idx[:, None].expand(P, n_samples).reshape(P * n_samples)
@@ -112,8 +117,13 @@ def _pass_grad(scene: Scene, options: RenderOptions, keys, n_samples: int, mode:
     None where a table gets none."""
     s = replace_tables(scene, dict(zip(keys, tables)))
     img = _radiance(s, options, pixel_idx, sample0, n_samples, mode)
+    tracing.mark("loss")
     part = _loss_part(loss, img, target, denom)
-    return (part.detach(), *torch.autograd.grad(part, tables, allow_unused=True))
+    with tracing.stage("backward"):
+        tracing.mark("vjp")
+        grads = torch.autograd.grad(part, tables, allow_unused=True)
+    tracing.mark("end")
+    return (part.detach(), *grads)
 
 
 def _add_into(acc, g):
@@ -132,9 +142,10 @@ def grad_key(scene: Scene, options: RenderOptions, mode: str, n_samples: int, lo
     address, shape, strides, dtype and version, which the graph reads in
     place. The float tables on the pixels' device are in it by shape, dtype
     and device alone: they are the graph's parameters, so new values replay
-    the same graph."""
+    the same graph. And the tracing flag: a graph with marks is one of its own."""
     return (key_options(options), mode, n_samples, loss, tuple(pixel_idx.shape), pixel_idx.dtype, pixel_idx.device,
-            tuple(target.shape), target.dtype, target.device, route(), table_facts(scene, pixel_idx.device))
+            tuple(target.shape), target.dtype, target.device, route(), table_facts(scene, pixel_idx.device),
+            tracing.enabled())
 
 
 def graphed(pixel_idx) -> bool:
@@ -143,6 +154,7 @@ def graphed(pixel_idx) -> bool:
     return pixel_idx.is_cuda and not in_eager()
 
 
+@tracing.spanned("take.grad.loss_grad")
 def partial_loss_grad(scene: Scene, options: RenderOptions, pixel_idx, target, n_samples: int, mode: str,
                       denom: int, sample0: int = 0, loss: str = "l2"):
     """sum((img - target)^2) / denom over a pixel batch (with loss="linear",
@@ -172,18 +184,20 @@ def partial_loss_grad(scene: Scene, options: RenderOptions, pixel_idx, target, n
     total = torch.zeros((), dtype=torch.float32, device=scene.background.device)
     acc = [None] * len(keys)  # the first pass's gradients, each later pass's added in place
     for sl in _passes(options, pixel_idx.shape[0], n_samples):
-        pix, tgt = pixel_idx[sl], target[sl]
-        if graph:
-            PASSES["graph"] += 1
-            key = grad_key(scene, options, mode, n_samples, loss, pix, tgt)
-            out = _graph.run(key, held, lambda *a: _pass_grad(held, key[0], keys, n_samples, mode, loss, *a),
-                             [pix, tgt, s0, dn], [tables[k] for k in keys])
-        else:
-            PASSES["eager"] += 1
-            with torch.enable_grad():
-                out = _pass_grad(scene, options, keys, n_samples, mode, loss, pix, tgt, s0, dn, *params)
-        total = total + out[0]
-        acc = [_add_into(a, g) for a, g in zip(acc, out[1:])]
+        with tracing.span("take.grad.pass"):
+            pix, tgt = pixel_idx[sl], target[sl]
+            if graph:
+                PASSES["graph"] += 1
+                with tracing.span("take.graph.key"):
+                    key = grad_key(scene, options, mode, n_samples, loss, pix, tgt)
+                out = _graph.run(key, held, lambda *a: _pass_grad(held, key[0], keys, n_samples, mode, loss, *a),
+                                 [pix, tgt, s0, dn], [tables[k] for k in keys])
+            else:
+                PASSES["eager"] += 1
+                with torch.enable_grad():
+                    out = _pass_grad(scene, options, keys, n_samples, mode, loss, pix, tgt, s0, dn, *params)
+            total = total + out[0]
+            acc = [_add_into(a, g) for a, g in zip(acc, out[1:])]
     got = dict(zip(keys, acc))  # zeros, once, where a table got no gradient
     grads = {k: torch.zeros_like(t) if got.get(k) is None else got[k] for k, t in tables.items()}
     return total, replace_tables(scene, grads, drop_rest=True)
@@ -215,6 +229,7 @@ def param_grads(scene: Scene, options: RenderOptions, pixel_idx, cotangent, n_sa
     return partial_loss_grad(scene, options, pixel_idx, cotangent, n_samples, mode, 1, loss="linear")[1]
 
 
+@tracing.spanned("take.grad.backward")
 def backward(scene: Scene, grads: Scene):
     """Carry a Scene-shaped gradient on into what the scene's tables were
     computed from (the raw parameters of scene/edit.py's edits, say): the

@@ -23,10 +23,19 @@ mode); `trace_mis_replay` computes the same estimator with an early exit
 (every trip under a CUDA graph capture) and a path-replay backward (grad.py's
 "replay" mode, the module's end).
 Primal renders run under torch.inference_mode() (render.py).
+
+With tracing on, each step of a bounce marks its phase (tracing.mark):
+shade (the shade point), light (light sampling and the MIS weights),
+occlusion (the shadow query and its arguments), bsdf (BSDF evaluation and
+sampling), intersect and hit (geometry/intersect.py), step (throughput,
+Russian roulette, the state's selects and accumulation); the camera vertex
+marks camera. The replay backward runs under stage "backward", its
+recomputed bounces marking the same phases and each pull marking vjp.
 """
 
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.math import constant, dot, normalize, safe_div, safe_norm
 from take_tpu_torch.geometry.intersect import intersect_scene, occluded
@@ -90,6 +99,7 @@ def _camera_vertex(scene: Scene, ro, rd):
     tmin0 = ro.new_full((N,), C_EPSILON)
     tmax0 = ro.new_full((N,), float("inf"))
     hit = intersect_scene(scene, ro, rd, tmin0, tmax0)
+    tracing.mark("camera")
     v = hit.valid[:, None]
     radiance = torch.where(v, 0.0, _background(scene, rd))
     radiance = radiance + torch.where(v, hit.emit, 0.0)
@@ -103,6 +113,7 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
     (the JAX package's extension; the reference has no environment light),
     so every light pdf divides by n_slots, which equals n_lights without
     one. `i` may be a Python int or a per-lane tensor (the refill loop)."""
+    tracing.mark("light")
     n_lights = scene.meta.n_lights
     n_slots = n_lights + (1 if scene.meta.has_envmap else 0)
     N = ro.shape[0]
@@ -138,6 +149,7 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
     # contribution is zero for every parameter value (a geometric backface
     # of a reflective material, or a light seen from behind) get
     # tmax = DEAD_TMAX, so the any-hit query skips them.
+    tracing.mark("occlusion")
     transmissive = (sp.tag == MAT_DISNEY_GLASS) | (sp.tag == MAT_DISNEY_BSDF)
     full_refl = (
         (sp.tag == MAT_DISNEY_METAL)
@@ -155,9 +167,11 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
         scene, shadow_o, light_dir, ro.new_full((N,), C_EPSILON),
         torch.where(nee_live, tmax_shadow, DEAD_TMAX),
     )
+    tracing.mark("bsdf")
     FG = bsdf_eval(scene, sp, dir_in, light_dir)
     bp = torch.clamp(bsdf_pdf(scene, sp, dir_in, light_dir), max=1e18)
 
+    tracing.mark("light")
     if scene.meta.has_area_lights:
         cos_l = torch.clamp(dot(-ls.normal, light_dir), min=0.0)
         apdf = area_pdf_from_sample(ls, ls.position, hit.pos)
@@ -188,6 +202,7 @@ def _vertex_sample(scene: Scene, streams, i, hit, sp, rd):
     """BSDF sampling at the current vertex (path_tracing.h:62-78).
 
     Returns (new_ro, dir_out, FG, bpdf, sample_ok)."""
+    tracing.mark("bsdf")
     dir_in = -rd
     u_lobe = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LOBE_SELECT))
     ub1 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_BSDF_U1))
@@ -267,6 +282,7 @@ def _bounce_step(scene: Scene, streams, i, state):
     """
     ro, rd, hit, active = state
     N = ro.shape[0]
+    tracing.mark("shade")
     sp = make_shade_point(scene, hit)
     spec = is_specular(sp)
 
@@ -276,9 +292,11 @@ def _bounce_step(scene: Scene, streams, i, state):
         scene, new_ro, dir_out, ro.new_full((N,), C_EPSILON),
         torch.where(active & sample_ok, float("inf"), DEAD_TMAX),
     )
+    tracing.mark("light")
     miss_term, C2_term, contrib = _arrival_contribs(
         scene, hit.pos, dir_out, FG, bpdf, spec, sample_ok, active, new_hit
     )
+    tracing.mark("step")
     c = c + miss_term + C2_term
 
     # throughput factor (path_tracing.h:107); dead lanes keep w == 1
@@ -437,6 +455,7 @@ class _Replay(torch.autograd.Function):
         return _replay_fwd_loop(scene, options, ro, rd, streams)
 
     @staticmethod
+    @tracing.staged("backward")
     def backward(ctx, gbar):
         ro, rd, streams = ctx.rays
         options, keys = ctx.options, ctx.keys
@@ -451,6 +470,7 @@ class _Replay(torch.autograd.Function):
             pairs = [(o, g) for o, g in zip(outputs, cotangents) if o.requires_grad]
             if not pairs or not wanted:
                 return
+            tracing.mark("vjp")
             grads = torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True)
             for j, g in enumerate(grads):
                 if g is not None:
@@ -460,6 +480,7 @@ class _Replay(torch.autograd.Function):
         N = ro.shape[0]
         # 1. the camera vertex (background and first-hit emission); the same
         #    evaluation gives the replay's initial state
+        tracing.mark("camera")
         with torch.enable_grad():
             radiance0, state0 = _camera_vertex(scene, ro, rd)
             pull([radiance0], [gbar])
@@ -480,6 +501,7 @@ class _Replay(torch.autograd.Function):
 
         # 3. the reverse fold S_i = c_i + w_i S_{i+1}, then pass 2: each
         #    bounce replayed from a detached state and pulled back through
+        tracing.mark("step")
         S_next = torch.zeros_like(cs)
         S = ro.new_zeros((N, 3))
         for i in range(D - 1, -1, -1):

@@ -17,11 +17,13 @@ loop of max_depth + 1 trips like trace_mis. As in the JAX package:
     BSDF weight), and point lights add nothing: no ray hits one, and an NEE
     arm that picks one ends its path (the reference's semantics).
 
-Every query runs at full width with tmax = +inf. Forward only.
+Every query runs at full width with tmax = +inf. Forward only. With
+tracing on, the loops mark their phases as trace_mis does.
 """
 
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.core import rng
 from take_tpu_torch.core.math import dot, normalize, safe_div, safe_norm
 from take_tpu_torch.geometry.intersect import intersect_scene
@@ -33,6 +35,7 @@ from take_tpu_torch.scene.types import LIGHT_AREA, Hit, RenderOptions, Scene
 
 def _bsdf_step(scene, streams, i, sp, dir_in):
     """BSDF sample at bounce i: (dir_out unit, FG, bpdf)."""
+    tracing.mark("bsdf")
     u_lobe = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_LOBE_SELECT))
     ub1 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_BSDF_U1))
     ub2 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_BSDF_U2))
@@ -52,6 +55,7 @@ def _first_hit(scene, ro, rd):
     tmin = ro.new_full((N,), C_EPSILON)
     tmax = ro.new_full((N,), float("inf"))
     hit = intersect_scene(scene, ro, rd, tmin, tmax)
+    tracing.mark("camera")
     radiance = torch.where(hit.valid[:, None], 0.0, _background(scene, rd))
     return hit, radiance, tmin, tmax
 
@@ -63,18 +67,22 @@ def trace_raw(scene: Scene, options: RenderOptions, ro, rd, streams):
     active = hit.valid
     for i in range(options.max_depth + 1):
         # loop-top emission + terminate (path_tracing.h:123-128)
+        tracing.mark("step")
         on_light = hit.light_id >= 0
         radiance = radiance + torch.where((active & on_light)[:, None], throughput * hit.emit, 0.0)
         active = active & ~on_light
 
+        tracing.mark("shade")
         sp = make_shade_point(scene, hit)
         dir_out, FG, bpdf = _bsdf_step(scene, streams, i, sp, -rd)
+        tracing.mark("step")
         sample_ok = bpdf > 0.0
         contrib = safe_div(FG, bpdf[:, None], 0.0)
         new_throughput = torch.where((active & sample_ok)[:, None], throughput * contrib, throughput)
 
         new_ro = offset_origin(hit.pos, hit.geo_n, dir_out)
         new_hit = intersect_scene(scene, new_ro, dir_out, tmin, tmax)
+        tracing.mark("step")
         miss = sample_ok & ~new_hit.valid
         radiance = radiance + torch.where(
             (active & miss)[:, None], new_throughput * _background(scene, dir_out), 0.0
@@ -104,13 +112,16 @@ def trace_one_sample_mis(scene: Scene, options: RenderOptions, ro, rd, streams, 
     active = hit.valid
     for i in range(options.max_depth + 1):
         # loop-top emission + terminate (path_tracing.h:170-177)
+        tracing.mark("step")
         on_light = hit.light_id >= 0
         radiance = radiance + torch.where((active & on_light)[:, None], throughput * hit.emit, 0.0)
         active = active & ~on_light
 
         dir_in = -rd
+        tracing.mark("shade")
         sp = make_shade_point(scene, hit)
         spec = is_specular(sp)
+        tracing.mark("light")
 
         # NEE arm: trace a ray to the light sample; the emission is
         # collected at the next loop top (path_tracing.h:188-227)
@@ -149,11 +160,13 @@ def trace_one_sample_mis(scene: Scene, options: RenderOptions, ro, rd, streams, 
         bs_dir, FG_bs, bpdf = _bsdf_step(scene, streams, i, sp, dir_in)
         bs_ok = bpdf > 0.0
 
+        tracing.mark("step")
         dir_out = torch.where(take_nee[:, None], nee_dir, bs_dir)
         new_ro = offset_origin(hit.pos, hit.geo_n, dir_out)
         new_hit = intersect_scene(scene, new_ro, dir_out, tmin, tmax)
 
         # the BSDF arm's pdf depends on what it hit
+        tracing.mark("light")
         if n_lights > 0:
             hit_em = new_hit.valid & (new_hit.light_id >= 0)
             lid = torch.clamp(new_hit.light_id, min=0)
@@ -169,6 +182,7 @@ def trace_one_sample_mis(scene: Scene, options: RenderOptions, ro, rd, streams, 
             pdf_bs = bpdf
 
         # throughput update for both arms
+        tracing.mark("step")
         contrib_nee = FG_nee * w_nee[:, None]
         contrib_bs = safe_div(FG_bs, pdf_bs[:, None], 0.0)
         contrib = torch.where(take_nee[:, None], contrib_nee, contrib_bs)

@@ -16,6 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from take_tpu_torch import tracing
 from take_tpu_torch.core.camera import Camera
 from take_tpu_torch.geometry import bvh as B
 from take_tpu_torch.scene import types as T
@@ -291,11 +292,12 @@ class SceneBuilder:
             p2 = p0 + np_tri["tri_e2"][:n_tri]
             bmin = np.minimum(np.minimum(p0, p1), p2)
             bmax = np.maximum(np.maximum(p0, p1), p2)
-            node_min, node_max, node_child, node_count, order = B.build_bvh(bmin, bmax)
-            perm = np.arange(Tpad)
-            perm[:n_tri] = order
-            np_tri = {k: v[perm] for k, v in np_tri.items()}
-            cl_aabb, sup_aabb = B.cluster_aabbs(bmin[order], bmax[order], n_tri)
+            with tracing.span("take.scene.bvh"):
+                node_min, node_max, node_child, node_count, order = B.build_bvh(bmin, bmax)
+                perm = np.arange(Tpad)
+                perm[:n_tri] = order
+                np_tri = {k: v[perm] for k, v in np_tri.items()}
+                cl_aabb, sup_aabb = B.cluster_aabbs(bmin[order], bmax[order], n_tri)
             bvh_tables = dict(zip(
                 (f"bvh.{n}" for n in T.BVH_TABLES),
                 (node_min, node_max, node_child, node_count, cl_aabb, sup_aabb),

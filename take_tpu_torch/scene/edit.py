@@ -8,13 +8,15 @@ Each helper returns a new Scene (dataclasses.replace) whose edited table is
 a clone written in place, so autograd reaches the value passed in, and
 whose other tables, and derived fields (`tri_rows`, the BVH's kernel
 layouts), are the original's: no helper touches geometry. After a geometry
-edit, rebuild the scene through SceneBuilder.
+edit, rebuild the scene through SceneBuilder. Each edit is a take.edit span
+(tracing.py).
 """
 
 import dataclasses
 
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.scene import types as T
 
 MATERIAL_PARAMS = {
@@ -39,6 +41,7 @@ def _value(x, like):
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
+@tracing.spanned("take.edit")
 def with_material_reflectance(scene, mat_id: int, rgb):
     """A scene with material `mat_id`'s constant reflectance replaced."""
     m = scene.materials
@@ -47,6 +50,7 @@ def with_material_reflectance(scene, mat_id: int, rgb):
     return dataclasses.replace(scene, materials=dataclasses.replace(m, attr=attr))
 
 
+@tracing.spanned("take.edit")
 def with_material_param(scene, mat_id: int, name: str, value):
     """Set a scalar material parameter (e.g. 'roughness', 'eta')."""
     col = MATERIAL_PARAMS[name]
@@ -56,6 +60,7 @@ def with_material_param(scene, mat_id: int, name: str, value):
     return dataclasses.replace(scene, materials=dataclasses.replace(m, attr=attr))
 
 
+@tracing.spanned("take.edit")
 def with_light_intensity_scale(scene, scale):
     """Scale every light's radiance by `scale` (a scalar or [3]), written
     through to lights.attr and to the emitters' tri_attr / sph_attr rows."""
@@ -74,6 +79,7 @@ def with_light_intensity_scale(scene, scale):
     )
 
 
+@tracing.spanned("take.edit")
 def with_texture_image(scene, tex_id: int, image):
     """Replace texture `tex_id`'s texels (the image must fit its atlas slot)."""
     tex = scene.textures
@@ -83,6 +89,7 @@ def with_texture_image(scene, tex_id: int, image):
     return dataclasses.replace(scene, textures=dataclasses.replace(tex, data=data))
 
 
+@tracing.spanned("take.edit")
 def with_envmap_data(scene, data):
     """Replace the environment map's radiance texels. The sampling tables
     stay as they are (fine for optimisation steps; rebuild the scene for a

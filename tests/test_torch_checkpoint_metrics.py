@@ -1,6 +1,6 @@
 """take_tpu_torch/utils and entry.py on the CPU, mirroring
-test_checkpoint_metrics.py: resume bit for bit, the seed check, the timer
-and meter, scene_summary against take_tpu's, checkpoints that cross between
+test_checkpoint_metrics.py: resume bit for bit, the seed check,
+scene_summary against take_tpu's, checkpoints that cross between
 the two packages, profiler_trace, and dryrun_multichip on two CPU devices."""
 
 import os
@@ -15,7 +15,7 @@ from take_tpu_torch import entry
 from take_tpu_torch.render import render_image
 from take_tpu_torch.scene.types import RenderOptions
 from take_tpu_torch.utils import checkpoint as ckpt
-from take_tpu_torch.utils.metrics import PhaseTimer, ThroughputMeter, profiler_trace, scene_summary
+from take_tpu_torch.utils.metrics import profiler_trace, scene_summary
 from tests.scenes import cornell_box
 from tests.test_torch_render import _compare
 from tests.torch_parity import one_torch_thread, port_scene  # noqa: F401 (fixture)
@@ -101,19 +101,6 @@ def test_checkpoints_cross_between_packages(jscene, straight, tmp_path):
         jckpt.render_image_resumable(jscene, JOptions(**OPTS), jax_half, 2, progress=stop_after(3))
     assert ckpt.load_accumulator(jax_half)[1] == 4
     assert _compare(ckpt.render_image_resumable(scene, RenderOptions(**OPTS), jax_half), img) < 1e-4
-
-
-def test_phase_timer_and_meter():
-    t = PhaseTimer(log=False)
-    with t.phase("parse"):
-        pass
-    with t.phase("render"):
-        pass
-    assert set(t.report()) == {"parse", "render"}
-
-    m = ThroughputMeter()
-    m.add(n_paths=1000, n_rays=11000, seconds=0.001)
-    assert m.report()["Mrays/s"] > 0
 
 
 def test_scene_summary_matches_jax():

@@ -982,3 +982,90 @@ def test_graph_gradient_equals_eager_on_card(card, request, name, mode):
             tol = max(2 * float((e2[key] - x).abs().max()), 1e-5 * float(x.abs().max()))
             assert float((g[key] - x).abs().max()) <= tol, (step, key)
     assert {id(e) for e in _graph.captured()} == graphs
+
+
+@pytest.mark.cuda
+def test_marked_pass_graph_shows_its_marks_in_order(card):
+    """With tracing on, a replayed cbox pass graph runs the take_mark_*
+    kernels in the order the pass body emits them (one a mark: the camera
+    vertex, 5 bounces of 10 phases, the end), and its image equals the
+    unmarked graph's bit for bit; with tracing off the graph holds none."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from take_tpu_torch import tracing
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 64)
+    opts = RenderOptions(spp=1, max_depth=4, seed=5)
+
+    def replayed():
+        render.render_image(scene, opts)  # the key's capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            img = render.render_image(scene, opts)
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        return img, [n[len("take_mark_"):] for _, n in kernels if n.startswith("take_mark_")]
+
+    render.clear_cache()
+    tracing.disable()
+    plain, none = replayed()
+    tracing.reset()
+    tracing.enable()
+    try:
+        marked, seen = replayed()
+        emitted = tracing.marks()
+    finally:
+        tracing.disable()
+        tracing.reset()
+        render.clear_cache()
+    assert none == [] and np.array_equal(marked, plain)
+    assert seen == [f"{s}_{p}" for s, p in emitted[len(emitted) // 2:]]  # the warm-up's marks, then the capture's
+    assert seen[0] == "forward_camera" and seen[-1] == "forward_end" and len(seen) == 4 + 5 * 10 + 1
+
+
+@pytest.mark.cuda
+def test_marked_gradient_graph_equals_unmarked(card):
+    """A replay gradient through a marked graph gives the unmarked graph's
+    loss bit for bit and its gradient within the run-to-run spread of the
+    scatter-adds, and its replay runs backward marks."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from take_tpu_torch import grad, tracing
+    from take_tpu_torch.scene.types import RenderOptions, float_tables
+
+    render = importlib.import_module("take_tpu_torch.render")
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), 64)
+    opts = RenderOptions(spp=1, max_depth=4, seed=3, grad_mode="replay")
+    pix = torch.arange(64 * 64, dtype=torch.int32, device="cuda")
+    target = torch.full((64 * 64, 3), 0.2, device="cuda")
+
+    def step():
+        loss, g = grad.render_loss_grad(scene, opts, pix, target, 1)
+        torch.cuda.synchronize()
+        return loss, float_tables(g)
+
+    render.clear_cache()
+    step()
+    (loss, g), (_, g2) = step(), step()
+    tracing.enable()
+    try:
+        step()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loss_m, g_m = step()
+    finally:
+        tracing.disable()
+        tracing.reset()
+        render.clear_cache()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert {"take_mark_forward_loss", "take_mark_backward_vjp", "take_mark_backward_shade"} <= names
+    assert torch.equal(loss_m, loss)
+    for key, x in g.items():
+        tol = max(2 * float((g2[key] - x).abs().max()), 1e-5 * float(x.abs().max()))
+        assert float((g_m[key] - x).abs().max()) <= tol, key

@@ -237,7 +237,7 @@ GRAPH_IBL_SPP = 16  # ibl's spp in the graph phase, eager and graph in turns (cu
 # a pixel regrouped from k = 1 to k = 2 sums the same 16 nonnegative float32
 # samples in another order: within 15 roundings, 15 x 2^-24 = 9e-7 of the pixel
 SUM_REL = 1e-5
-SOURCES = ("brute", "traverse", "cluster", "sweep")
+SOURCES = ("brute", "traverse", "cluster", "sweep", "rng")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
 # t/u/v of agreeing hits must lie within the float32 rounding bound of
@@ -290,7 +290,7 @@ def ptxas_report(log):
 
 def build_phase(_build, modules):
     """nvcc for every source at once, then load each library. Every kernel
-    (K1-K6) must report 0 bytes of stack frame and no spills."""
+    (K1-K6 and the RNG's) must report 0 bytes of stack frame and no spills."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
@@ -323,6 +323,78 @@ def bound(nbytes, flops):
     """(ms, "bytes" or "operations")."""
     b, f = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOPS_S * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
+
+
+RNG_LANES, RNG_SEED = 1 << 20, 7  # a pass's paths
+RNG_SETS = 8  # input sets the timed calls cycle through: 8 x 16 MB of streams, more than the 50 MB L2
+# bytes a lane moves: a stream reads two int32 indices and writes hi and lo
+# (int64); a draw reads hi and lo and writes a float, and reads an int64
+# counter more in the per-lane form
+RNG_STREAM_BYTES, RNG_DRAW_BYTES, RNG_COUNTER_BYTES = 24, 20, 8
+
+
+def graph_ms(torch, fn, calls=64, replays=5):
+    """Milliseconds per call of fn(k), k = 0 .. calls - 1, replayed from one
+    captured CUDA graph: the card's time alone, as inside a pass graph,
+    without the host's work of each launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(calls):
+            fn(k)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def rng_cell(torch, dev):
+    """The counter RNG's kernels (csrc/rng.cu) on RNG_LANES lanes as a pass
+    draws: a stream from int32 pixel and sample indices, a uniform at a
+    bounce counter, and one at per-lane counters (the refill loop's). Each
+    must equal its plain version (core/rng.py) bit for bit, and is timed
+    (graph_ms, cycling through RNG_SETS input sets, so that the inputs come
+    from device memory) beside its bound and the plain version's time;
+    returns {name: times}."""
+    from take_tpu_torch.core import rng
+
+    n = RNG_LANES
+    pix = [torch.randint(0, 1 << 31, (n,), device=dev, dtype=torch.int32) for _ in range(RNG_SETS)]
+    samp = [torch.randint(0, 1 << 16, (n,), device=dev, dtype=torch.int32) for _ in range(RNG_SETS)]
+    st = [rng.make_stream(RNG_SEED, p, s) for p, s in zip(pix, samp)]
+    lane_c = [rng.bounce_counter(torch.randint(-1, 51, (n,), device=dev), rng.DIM_BSDF_U1) for _ in range(RNG_SETS)]
+    c = rng.bounce_counter(2, rng.DIM_LIGHT_U1)
+    cases = {
+        "stream": (lambda k: rng.make_stream(RNG_SEED, pix[k % RNG_SETS], samp[k % RNG_SETS]),
+                   lambda k: rng._make_stream_plain(RNG_SEED, pix[k % RNG_SETS], samp[k % RNG_SETS]), RNG_STREAM_BYTES),
+        "uniform": (lambda k: rng.uniform(st[k % RNG_SETS], c), lambda k: rng._uniform_plain(st[k % RNG_SETS], c),
+                    RNG_DRAW_BYTES),
+        "uniform_lanes": (lambda k: rng.uniform(st[k % RNG_SETS], lane_c[k % RNG_SETS]),
+                          lambda k: rng._uniform_plain(st[k % RNG_SETS], lane_c[k % RNG_SETS]),
+                          RNG_DRAW_BYTES + RNG_COUNTER_BYTES),
+    }
+    out, rows = {}, []
+    for name, (kernel, plain, nbytes) in cases.items():
+        for k in range(RNG_SETS):
+            got, want = kernel(k), plain(k)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"rng {name}: the kernel differs from the plain version")
+        ms, plain_ms = graph_ms(torch, kernel), graph_ms(torch, plain, calls=16)
+        bound_ms, _ = bound(nbytes * n, 0)
+        out[name] = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms}
+        rows.append(f"{name} {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}%), "
+                    f"plain {plain_ms * 1e3:.1f} us ({plain_ms / ms:.1f}x)")
+    phase("rng", f"{n} lanes, each equal to its plain version bit for bit, times from a graph: " + "; ".join(rows))
+    return out
 
 
 def bvh_bound(torch, packet, bvh, rays, any_hit, seed=0):
@@ -2453,12 +2525,14 @@ def main():
             p.is_file() for p in (SCENE, ROOM, MIS, TEXTURED, IBL)):
         raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
     sys.path.insert(0, str(ROOT))
+    from take_tpu_torch.core import rng
     from take_tpu_torch.geometry import _build, brute, cluster, packet, sweep
     from take_tpu_torch.render import clear_cache
     from take_tpu_torch.scene.types import scene_to
 
-    build_phase(_build, (brute, packet, cluster, sweep))
+    build_phase(_build, (brute, packet, cluster, sweep, rng))
     dev = torch.device(DEVICE)
+    rng_times = rng_cell(torch, dev)
     out_dir = ROOT / "build" / "take_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -2499,7 +2573,7 @@ def main():
           f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}; parallel {launches_par}; "
           f"bench {launches_bench}; room grad {launches_room_grad}; inverse step {launches_inverse}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "rng": rng_times}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -28,11 +28,13 @@ a replay may write over memory that another graph's output or intermediates
 used, never over memory that anything still reads. The static inputs are
 allocated outside the pool.
 
-The kernel wrappers count launches in Python (geometry/_launch.py). A
-capture calls them, but nothing runs then; a replay runs their kernels
-without calling them. So what a capture counts is taken back out of
-`_launch.LAUNCHES` and added in again at every replay: LAUNCHES counts
-what ran (the warm-up ran, and counts).
+The kernel wrappers count launches in Python (geometry/_launch.py, and
+core/rng.py for the RNG's kernels). A capture calls them, but nothing runs
+then; a replay runs their kernels without calling them. So what a capture
+counts is taken back out of `_launch.LAUNCHES` and `rng.LAUNCHES` and added
+in again at every replay: both count what ran (the warm-up ran, and
+counts). The RNG's kernels are launched once, uncounted, before the
+warm-up, so that none is loaded while a graph is being captured.
 
 With tracing on (tracing.py), `run` times its steps as spans
 (take.graph.copy_in, take.graph.replay, take.graph.clone_out; a key's first
@@ -51,9 +53,11 @@ import dataclasses
 import torch
 
 from take_tpu_torch import tracing
+from take_tpu_torch.core import rng
 from take_tpu_torch.geometry import _launch
 
 MAX_GRAPHS = 48  # graphs kept, the least recently used dropped first
+COUNTERS = (_launch.LAUNCHES, rng.LAUNCHES)  # the launch counters a capture keeps; no key is in both
 
 
 @dataclasses.dataclass
@@ -63,7 +67,7 @@ class Captured:
     graph: object  # torch.cuda.CUDAGraph
     inputs: list  # the static input and param buffers the graph reads
     output: object  # the tensor, or tuple of tensors (and Nones), the graph writes
-    launches: dict  # kernel launches of one replay, by _launch.LAUNCHES key
+    launches: dict  # kernel launches of one replay, by key of _launch.LAUNCHES or rng.LAUNCHES
     hold: object  # what the graph reads and must outlive it (the scene)
 
 
@@ -72,19 +76,19 @@ _POOLS = {}  # device -> graph_pool_handle()
 
 
 def add_launches(delta, times=1):
-    """Add `times` x `delta` ({LAUNCHES key: count}) to _launch.LAUNCHES."""
+    """Add `times` x `delta` ({key: count}) to the COUNTERS that hold each key."""
     for key, n in delta.items():
-        _launch.LAUNCHES[key] += times * n
+        next(c for c in COUNTERS if key in c)[key] += times * n
 
 
 def uncounted(fn):
     """(fn(), the launches it counted), with those counts taken back out of
-    _launch.LAUNCHES, also when fn raises."""
-    before = dict(_launch.LAUNCHES)
+    the COUNTERS, also when fn raises."""
+    before = {k: n for c in COUNTERS for k, n in c.items()}
     try:
         out = fn()
     finally:
-        delta = {k: n - before.get(k, 0) for k, n in _launch.LAUNCHES.items() if n != before.get(k, 0)}
+        delta = {k: n - before[k] for c in COUNTERS for k, n in c.items() if n != before[k]}
         add_launches(delta, -1)
     return out, delta
 
@@ -96,6 +100,7 @@ def _capture(body, inputs, params, hold):
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
+        rng.load_kernels()
         if tracing.enabled():
             tracing.load_marks()
         body(*static)

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from chip_smoke import capture_queries, fp32_bounds, near_boundary, with_res
+from take_tpu_torch import _graph
+from take_tpu_torch.core import rng
 from take_tpu_torch.geometry import _launch, brute, cluster, packet, sweep
 from take_tpu_torch.geometry.packet import prep_tables
 from take_tpu_torch.scene.build import SceneBuilder
@@ -1069,3 +1071,97 @@ def test_marked_gradient_graph_equals_unmarked(card):
     for key, x in g.items():
         tol = max(2 * float((g2[key] - x).abs().max()), 1e-5 * float(x.abs().max()))
         assert float((g_m[key] - x).abs().max()) <= tol, key
+
+
+@pytest.fixture(scope="module")
+def rng_lanes():
+    """2^20 lanes of (pixel, sample) as int64 on the card, pixel indices up to 2^31 - 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = np.random.default_rng(18)
+    pix = g.integers(0, 1 << 31, 1 << 20, dtype=np.int64)
+    pix[:3] = (0, 1, (1 << 31) - 1)
+    samp = g.integers(0, 1 << 16, 1 << 20, dtype=np.int64)
+    return torch.from_numpy(pix).cuda(), torch.from_numpy(samp).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 0xFFFFFFFF])
+def test_rng_kernels_equal_plain(rng_lanes, seed):
+    """csrc/rng.cu against core/rng.py's plain versions on the card, bit for
+    bit: streams from int32 and int64 indices and broadcast shapes; uniform
+    and random bits at every bounce counter of bounces 0-50, the camera's,
+    counters near 2^32 and per-lane counter tensors."""
+    pix, samp = rng_lanes
+    for p, s in ((pix.int(), samp.int()), (pix, samp), (pix.int(), samp), (pix[:4096, None], samp[None, :16].int())):
+        k, want = rng.make_stream(seed, p, s), rng._make_stream_plain(seed, p, s)
+        assert k[0].shape == want[0].shape and torch.equal(k[0], want[0]) and torch.equal(k[1], want[1])
+    st = rng.make_stream(seed, pix.int(), samp.int())
+    counters = [rng.bounce_counter(i, d) for i in range(51) for d in range(rng.DIMS_PER_BOUNCE)]
+    counters += [rng.camera_counter(rng.DIM_CAMERA_JITTER_X), rng.camera_counter(rng.DIM_CAMERA_JITTER_Y),
+                 (1 << 32) - 1, (1 << 32) - 2, 1 << 31, 1 << 32, -1]
+    g = torch.Generator(device="cuda").manual_seed(seed & 0xFFFF)
+    lane = torch.randint(0, 1 << 32, (1 << 20,), generator=g, device="cuda", dtype=torch.int64)
+    counters += [lane, lane.int(), rng.bounce_counter(torch.randint(-1, 51, (1 << 20,), device="cuda"), 3),
+                 torch.tensor(12, device="cuda")]
+    bad = [i for i, c in enumerate(counters)
+           if not (torch.equal(rng.uniform(st, c), rng._uniform_plain(st, c))
+                   and torch.equal(rng.random_bits(st, c), rng._random_bits_plain(st, c)))]
+    assert bad == []
+    with pytest.raises(ValueError, match="counter"):
+        rng.uniform(st, lane.float())
+    with pytest.raises(ValueError, match="stream"):
+        rng.uniform((st[0].int(), st[1]), 3)
+    with pytest.raises(ValueError, match="float32"):
+        rng.uniform(st, 3, torch.float64)
+
+
+def _cbox_pass(n_samples, res=256):
+    import importlib
+
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")
+    scene = with_res(parse_scene_file(CBOX, device="cuda"), res)
+    pix = torch.arange(res * res, dtype=torch.int32, device="cuda")
+
+    def one():
+        with torch.inference_mode():
+            return render.render_pass(scene, RenderOptions(spp=n_samples, max_depth=4), pix, 0, res, n_samples)
+
+    return render, one
+
+
+@pytest.mark.cuda
+def test_rng_kernels_render_pass_equals_plain(card):
+    """A cbox pass through a captured graph that draws with the kernels
+    equals the same pass captured with the plain versions patched in, bit
+    for bit."""
+    render, one = _cbox_pass(2)
+    render.clear_cache()
+    rng.reset_launches()
+    got = one()
+    assert rng.LAUNCHES["uniform"] > 0 and rng.LAUNCHES["uniform_plain"] == 0
+    render.clear_cache()
+    with mock.patch.object(rng, "make_stream", rng._make_stream_plain), \
+            mock.patch.object(rng, "uniform", rng._uniform_plain):
+        want = one()
+    render.clear_cache()
+    assert got.abs().sum() > 0 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_rng_launches_of_a_captured_cbox_pass(card):
+    """A cbox d4 pass's graph holds one stream and 2 + 7 x 5 draws (the
+    camera's jitter; 3 light and 4 BSDF uniforms on each of 5 trips), and
+    rng.LAUNCHES counts what ran: the warm-up and each replay."""
+    render, one = _cbox_pass(1, res=64)
+    render.clear_cache()
+    rng.reset_launches()
+    one()
+    per_pass = {**dict.fromkeys(rng.LAUNCHES, 0), "stream": 1, "uniform": 2 + 7 * 5}
+    assert {k: _graph.captured()[-1].launches.get(k, 0) for k in rng.LAUNCHES} == per_pass
+    assert rng.LAUNCHES == {k: 2 * v for k, v in per_pass.items()}
+    one()
+    render.clear_cache()
+    assert rng.LAUNCHES == {k: 3 * v for k, v in per_pass.items()}

@@ -29,8 +29,11 @@ shade (the shade point), light (light sampling and the MIS weights),
 occlusion (the shadow query and its arguments), bsdf (BSDF evaluation and
 sampling), intersect and hit (geometry/intersect.py), step (throughput,
 Russian roulette, the state's selects and accumulation); the camera vertex
-marks camera. The replay backward runs under stage "backward", its
-recomputed bounces marking the same phases and each pull marking vjp.
+marks camera. Inside these, the environment map's sampling, lookups and pdf
+are phase envmap (tracing.phase, which resumes the phase it interrupted), as
+the Disney lobes in the BSDF dispatch are phase disney (materials/bsdf.py).
+The replay backward runs under stage "backward", its recomputed bounces
+marking the same phases and each pull marking vjp.
 """
 
 import torch
@@ -87,7 +90,8 @@ def _background(scene: Scene, rd):
     """Radiance for escaped rays: the environment map if the scene has one,
     else the flat background."""
     if scene.meta.has_envmap:
-        return envmap_eval(scene.envmap, rd)
+        with tracing.phase("envmap"):
+            return envmap_eval(scene.envmap, rd)
     return scene.background.expand(rd.shape)
 
 
@@ -138,7 +142,8 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
         tmax_shadow = ro.new_full((N,), float("inf"))
     if scene.meta.has_envmap:
         u3 = rng.uniform(streams, rng.bounce_counter(i, rng.DIM_ENV_U3))
-        env_dir, env_pdf = envmap_sample(scene.envmap, u1, u2, u3)
+        with tracing.phase("envmap"):
+            env_dir, env_pdf = envmap_sample(scene.envmap, u1, u2, u3)
         is_env = slot == n_lights
         light_dir = torch.where(is_env[:, None], env_dir, light_dir)
         tmax_shadow = torch.where(is_env, float("inf"), tmax_shadow)
@@ -190,7 +195,8 @@ def _vertex_nee(scene: Scene, streams, i, hit, sp, spec, active, ro, rd):
         okp = (~is_env) & (~ls.is_area) & (~shadow_occ)
         C1 = C1 + FG * ls.intensity * torch.where(okp, inv_d2 * n_slots, 0.0)[:, None]
     if scene.meta.has_envmap:
-        Li_env = envmap_eval(scene.envmap, light_dir)
+        with tracing.phase("envmap"):
+            Li_env = envmap_eval(scene.envmap, light_dir)
         lp_env = torch.clamp(env_pdf / n_slots, max=1e18)
         w_env = safe_div(lp_env, lp_env * lp_env + bp * bp, 0.0)
         ok_env = is_env & (bp > 0.0) & (env_pdf > 0.0) & (~shadow_occ)
@@ -238,7 +244,9 @@ def _arrival_contribs(scene: Scene, prev_pos, dir_out, FG, bpdf, spec, sample_ok
     # background keeps the reference's full credit
     miss = sample_ok & ~new_hit.valid
     if scene.meta.has_envmap:
-        lp_env = torch.clamp(envmap_pdf(scene.envmap, dir_out) / n_slots, max=1e18)
+        with tracing.phase("envmap"):
+            env_pdf = envmap_pdf(scene.envmap, dir_out)
+        lp_env = torch.clamp(env_pdf / n_slots, max=1e18)
         w_env_bs = torch.where(
             spec,
             safe_div(torch.ones_like(bpdf), bpdf, 0.0),

@@ -8,13 +8,15 @@ O(1) texel sampling on the device (two gathers and one compare).
 
 `build_alias_table` and `build_envmap` are host numpy code, copied step for
 step so that the tables are bit-equal with the JAX package's; the scene
-uploads them once (scene/types.py::scene_from_numpy). The lookups work on
-tensors on the scene's device.
+uploads them once (scene/types.py::scene_from_numpy); with tracing on,
+their build is the span take.scene.envmap. The lookups work on tensors on
+the scene's device.
 """
 
 import numpy as np
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.core.math import C_PI, C_TWOPI, gather_rows
 from take_tpu_torch.scene.types import EnvMap
 
@@ -46,6 +48,7 @@ def build_alias_table(w: np.ndarray):
     return prob, alias
 
 
+@tracing.spanned("take.scene.envmap")
 def build_envmap(data: np.ndarray, to_world4=None, scale=1.0) -> dict:
     """The envmap's tables from [H, W, 3] radiance, in host numpy, keyed by
     EnvMap field ("data", "alias_prob", ...), as the JAX package's EnvMap

@@ -11,13 +11,15 @@ Here are diffuse, mirror, plastic, phong, blinn-phong, blinn-phong
 microfacet and disney-diffuse; the other Disney tags (metal, glass,
 clearcoat, sheen, disneybsdf) dispatch to disney.py, as the JAX package's
 disney_mode="full" does (its other modes, the reference's stubs, are not
-ported).
+ported). With tracing on, the Disney lobes' work in each dispatch is phase
+`disney` (tracing.phase), inside whichever phase called the dispatch.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from take_tpu_torch import tracing
 from take_tpu_torch.core.math import C_INVPI, C_INVTWOPI, dot, face_forward, gather_rows, normalize, reflect, to_world
 from take_tpu_torch.core.sampling import sample_cos_power, sample_hemisphere_cos
 from take_tpu_torch.materials import disney
@@ -337,7 +339,8 @@ def bsdf_sample(scene: Scene, sp: ShadePoint, dir_in, u_lobe, u1, u2, u3=None):
         elif tag in (MAT_BLINN_PHONG, MAT_BLINN_PHONG_MICROFACET):
             d, p = _blinn_phong_sample(sp, dir_in, u1, u2)
         elif tag in disney.TAGS:
-            d, p = disney.sample(tag, sp, dir_in, u_lobe, u1, u2, u3)
+            with tracing.phase("disney"):
+                d, p = disney.sample(tag, sp, dir_in, u_lobe, u1, u2, u3)
         else:  # Diffuse, DisneyDiffuse
             d, p = _cosine_sample(sp, dir_in, u1, u2)
         m = sp.tag == tag
@@ -367,9 +370,11 @@ def bsdf_eval(scene: Scene, sp: ShadePoint, dir_in, dir_out, sample_pdf=None):
         elif tag == MAT_BLINN_PHONG_MICROFACET:
             v = _bp_micro_eval(sp, dir_in, dir_out)
         elif tag == MAT_DISNEY_DIFFUSE:
-            v = _disney_diffuse_eval(sp, dir_in, dir_out)
+            with tracing.phase("disney"):
+                v = _disney_diffuse_eval(sp, dir_in, dir_out)
         elif tag in disney.TAGS:
-            v = disney.eval(tag, sp, dir_in, dir_out)
+            with tracing.phase("disney"):
+                v = disney.eval(tag, sp, dir_in, dir_out)
         else:  # Diffuse
             v = _diffuse_eval(sp, dir_in, dir_out)
         f = torch.where((sp.tag == tag)[..., None], v, f)
@@ -389,7 +394,8 @@ def bsdf_pdf(scene: Scene, sp: ShadePoint, dir_in, dir_out):
         elif tag in (MAT_BLINN_PHONG, MAT_BLINN_PHONG_MICROFACET):
             p = _blinn_phong_pdf(sp, dir_in, dir_out)
         elif tag in disney.TAGS:
-            p = disney.pdf(tag, sp, dir_in, dir_out)
+            with tracing.phase("disney"):
+                p = disney.pdf(tag, sp, dir_in, dir_out)
         else:  # Diffuse, DisneyDiffuse
             p = _cosine_pdf(sp, dir_in, dir_out)
         pdf = torch.where(sp.tag == tag, p, pdf)

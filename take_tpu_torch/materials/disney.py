@@ -10,10 +10,15 @@ computes the same expressions in the same order:
   * Clearcoat: Burley's clearcoat D (alpha set by gloss), Smith G at a
     fixed roughness of 0.25, F = Schlick(0.04).
   * Glass: rough dielectric, GGX half vectors, exact dielectric Fresnel,
-    reflection and refraction; Hit.front orients eta.
+    reflection and refraction; Hit.front orients eta. Its value and pdf are
+    0 where no microfacet scatters dir_in into dir_out (Walter et al.'s
+    sidedness), and a sample that leaves on the other side of the surface
+    than its event (reflection or refraction) fails, so that the pdf is
+    the density of the samples (take_tpu keeps both).
   * Sheen: the tint-blended retro term (1 - h.out)^5.
   * DisneyBSDF: the weighted composite (diffuse, sheen, metal, clearcoat,
-    glass) with lobe-probability sampling and a blended pdf.
+    glass) with lobe-probability sampling and a blended pdf; a sample
+    fails where its own lobe has no density (take_tpu keeps it).
 
 eval returns BRDF * cos folded together; pdfs are solid-angle; dir_in
 points away from the surface. Every function is batched [N] and branch-free.
@@ -303,6 +308,16 @@ def _glass_half(sp, dir_in, dir_out):
     return eta, il, ol, ax, ay, reflecting, hl, hdi, hdo
 
 
+def _glass_valid(ol, reflecting, hdi, hdo):
+    """Where the rough dielectric scatters dir_in into dir_out at all: off
+    the horizon, and (Walter et al. 2007's sidedness) by a microfacet that
+    faces dir_in, with dir_out on its front for a reflection and on its back
+    for a refraction. Elsewhere no microfacet maps one into the other, and
+    the value and the pdf are 0."""
+    side = torch.where(reflecting, hdo > 0.0, hdo < 0.0)
+    return (ol[..., 2].abs() > 1e-7) & (hdi > 0.0) & side
+
+
 def _glass_eval(sp, dir_in, dir_out):
     eta, il, ol, ax, ay, reflecting, hl, hdi, hdo = _glass_half(sp, dir_in, dir_out)
     F = _fresnel_dielectric(hdi.abs(), eta)
@@ -317,7 +332,7 @@ def _glass_eval(sp, dir_in, dir_out):
         (1.0 - F) * D * G * (hdo * hdi).abs() / (niz * denom2)
     )[..., None]
     f = torch.where(reflecting[..., None], f_refl, f_trans)
-    return torch.where((ol[..., 2].abs() > 1e-7)[..., None], f, 0.0)
+    return torch.where(_glass_valid(ol, reflecting, hdi, hdo)[..., None], f, 0.0)
 
 
 def _glass_pdf(sp, dir_in, dir_out):
@@ -330,7 +345,7 @@ def _glass_pdf(sp, dir_in, dir_out):
     jac_t = eta * eta * hdo.abs() / denom2
     pdf_trans = (1.0 - F) * ph * jac_t
     pdf = torch.where(reflecting, pdf_refl, pdf_trans)
-    return torch.where(ol[..., 2].abs() > 1e-7, pdf, 0.0)
+    return torch.where(_glass_valid(ol, reflecting, hdi, hdo), pdf, 0.0)
 
 
 def _glass_sample(sp, dir_in, u_lobe, u1, u2):
@@ -355,7 +370,10 @@ def _glass_sample(sp, dir_in, u_lobe, u1, u2):
     )
     take_refl = (u_lobe <= F) | tir
     dir_out = torch.where(take_refl[..., None], d_refl, d_trans)
-    return dir_out, _glass_pdf(sp, dir_in, dir_out)
+    # a reflection that leaves below the surface, or a refraction above it,
+    # fails: the pdf there is the other event's density
+    above = dot(n, dir_out) > 0.0
+    return dir_out, torch.where(take_refl == above, _glass_pdf(sp, dir_in, dir_out), 0.0)
 
 
 # -- DisneyBSDF composite --
@@ -430,20 +448,26 @@ def _disney_bsdf_pdf(sp, dir_in, dir_out):
 
 
 def _disney_bsdf_sample(sp, dir_in, u_lobe, u1, u2, u3):
+    """One lobe's sample, picked by u_lobe, with the mixture's pdf. A
+    direction at which the lobe that drew it has no density (a metal or
+    clearcoat reflection below the surface, say) is a failed sample: the
+    mixture's pdf there counts the other lobes' draws only (glass's, below
+    the surface), so keeping it would weight it by a pdf below its density."""
     pd, pm, pg, _ = _bsdf_lobe_probs(sp)
-    d_d, _ = bsdf._cosine_sample(sp, dir_in, u1, u2)
-    d_m, _ = _metal_sample(sp, dir_in, u1, u2)
-    d_g, _ = _glass_sample(sp, dir_in, u3, u1, u2)
-    d_c, _ = _clearcoat_sample(sp, dir_in, u1, u2)
-    c1 = pd
-    c2 = pd + pm
-    c3 = pd + pm + pg
+    d_d, p_d = bsdf._cosine_sample(sp, dir_in, u1, u2)
+    d_m, p_m = _metal_sample(sp, dir_in, u1, u2)
+    d_g, p_g = _glass_sample(sp, dir_in, u3, u1, u2)
+    d_c, p_c = _clearcoat_sample(sp, dir_in, u1, u2)
+    c1 = u_lobe < pd
+    c2 = u_lobe < pd + pm
+    c3 = u_lobe < pd + pm + pg
     dir_out = torch.where(
-        (u_lobe < c1)[..., None],
+        c1[..., None],
         d_d,
-        torch.where((u_lobe < c2)[..., None], d_m, torch.where((u_lobe < c3)[..., None], d_g, d_c)),
+        torch.where(c2[..., None], d_m, torch.where(c3[..., None], d_g, d_c)),
     )
-    return dir_out, _disney_bsdf_pdf(sp, dir_in, dir_out)
+    own = torch.where(c1, p_d, torch.where(c2, p_m, torch.where(c3, p_g, p_c)))
+    return dir_out, torch.where(own > 0.0, _disney_bsdf_pdf(sp, dir_in, dir_out), 0.0)
 
 
 # -- Dispatch (materials/bsdf.py calls these for TAGS) --

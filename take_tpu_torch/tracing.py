@@ -22,6 +22,10 @@ one-thread kernel that does nothing, `take_mark_<stage>_<phase>`
 boundary on the card's timeline between the phases' kernels. Elsewhere (on
 the CPU, in passes run op by op) a mark launches nothing. On, every mark is
 recorded as (stage, phase) in the order the body emits it (`marks()`).
+`with phase(p):` marks p for a block inside another phase and then marks
+the interrupted phase again, so that the other phases keep their meaning:
+`disney` (the Disney lobes inside the BSDF dispatch) and `envmap` (the
+environment map's sampling, lookups and pdf) are such phases.
 A graph captured with tracing on holds mark nodes and one captured with it
 off holds none, so `enabled()` is part of every graph key
 (render.pass_key, grad.grad_key).
@@ -38,7 +42,8 @@ import time
 import torch
 
 STAGES = ("forward", "backward")
-PHASES = ("camera", "shade", "light", "occlusion", "bsdf", "intersect", "hit", "step", "loss", "vjp", "end")
+PHASES = ("camera", "shade", "light", "occlusion", "bsdf", "intersect", "hit", "step", "loss", "vjp", "end",
+          "disney", "envmap")
 MAX_MARKS = 1 << 16  # marks kept for marks(), the latest
 
 _ON = [os.environ.get("TAKE_TPU_TRACE", "") == "1"]
@@ -48,6 +53,7 @@ _TABLE = {}  # span name -> {"count", "total_s", "self_s", "parent"}
 _OPEN = threading.local()  # .spans: this thread's open spans, innermost last
 _STAGE = ["forward"]  # the stage stack; shared, since autograd runs a backward on a thread of its own
 _MARKS = collections.deque(maxlen=MAX_MARKS)
+_LATEST = {}  # stage -> its latest phase, the one a `phase` block resumes
 
 
 def enabled() -> bool:
@@ -143,6 +149,7 @@ def reset():
     with _LOCK:
         _TABLE.clear()
     _MARKS.clear()
+    _LATEST.clear()
 
 
 @contextlib.contextmanager
@@ -173,8 +180,26 @@ def mark(phase: str):
         raise ValueError(f"unknown phase {phase!r}")
     s = _STAGE[-1]
     _MARKS.append((s, phase))
+    _LATEST[s] = phase
     if _capturing():
         _launch(STAGES.index(s), PHASES.index(phase))
+
+
+@contextlib.contextmanager
+def _phase_of(name):
+    back = _LATEST.get(_STAGE[-1], "end")
+    mark(name)
+    try:
+        yield
+    finally:
+        mark(back)
+
+
+def phase(name: str):
+    """A context whose device work is phase `name` of the current stage,
+    after which the phase it interrupted resumes ("end", so unmarked, where
+    none had begun); no-op when off."""
+    return _phase_of(name) if _ON[0] else _NULL
 
 
 @functools.cache

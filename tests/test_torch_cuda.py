@@ -1031,6 +1031,54 @@ def test_marked_pass_graph_shows_its_marks_in_order(card):
 
 
 @pytest.mark.cuda
+def test_marked_ibl_pass_graph_shows_disney_and_envmap(card):
+    """With tracing on, a replayed ibl pass graph runs the take_mark_*
+    kernels in the order the pass body emits them, the `disney` and
+    `envmap` marks each followed by the phase it interrupted, and its image
+    equals the unmarked graph's bit for bit; with tracing off the ibl graph
+    holds no mark."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from take_tpu_torch import tracing
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")
+    scene = with_res(parse_scene_file(os.path.join(SCENES, "ibl", "ibl.xml"), device="cuda"), 64)
+    opts = RenderOptions(spp=1, max_depth=6, seed=5)
+
+    def replayed():
+        render.render_image(scene, opts)  # the key's capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            img = render.render_image(scene, opts)
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        return img, [n[len("take_mark_"):] for _, n in kernels if n.startswith("take_mark_")]
+
+    render.clear_cache()
+    tracing.disable()
+    plain, none = replayed()
+    tracing.reset()
+    tracing.enable()
+    try:
+        marked, seen = replayed()
+        emitted = tracing.marks()
+    finally:
+        tracing.disable()
+        tracing.reset()
+        render.clear_cache()
+    assert none == [] and np.array_equal(marked, plain)
+    assert seen == [f"{s}_{p}" for s, p in emitted[len(emitted) // 2:]]  # the warm-up's marks, then the capture's
+    phases = [n[len("forward_"):] for n in seen]
+    nested = [i for i, p in enumerate(phases) if p in ("disney", "envmap")]
+    assert {phases[i] for i in nested} == {"disney", "envmap"}
+    assert all(phases[i + 1] == phases[i - 1] for i in nested)
+
+
+@pytest.mark.cuda
 def test_marked_gradient_graph_equals_unmarked(card):
     """A replay gradient through a marked graph gives the unmarked graph's
     loss bit for bit and its gradient within the run-to-run spread of the

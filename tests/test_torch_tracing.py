@@ -1,10 +1,12 @@
 """take_tpu_torch/tracing.py on the CPU: off, it records nothing and changes
 no result; its span table; the phase marks a pass body emits, forward and
 in the replay backward; the graph keys that hold the tracing flag; and the
-mark kernels' order in csrc/mark.cu."""
+mark kernels' order in csrc/mark.cu; the `disney` and `envmap` phases that
+interrupt another phase and resume it, on ibl and nowhere else."""
 
 import dataclasses
 import importlib
+import os
 import re
 import time
 from pathlib import Path
@@ -15,6 +17,7 @@ import torch
 
 from take_tpu_torch import grad, load_scene, tracing
 from take_tpu_torch.core.camera import Camera
+from take_tpu_torch.materials import disney
 from take_tpu_torch.scene import edit
 from take_tpu_torch.scene.types import RenderOptions
 from tests.torch_parity import CBOX, one_torch_thread  # noqa: F401 (fixture)
@@ -134,3 +137,67 @@ def test_mark_kernels_follow_the_module_order():
     table = re.search(r"kMarks\[\]\)\(\) = \{(.*?)\};", src).group(1)
     assert re.findall(r"TT_PHASES\(TT_ENTRY, (\w+)\)", table) == list(tracing.STAGES)
     assert "kStages = 2" in src and len(tracing.STAGES) == 2
+
+
+SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
+
+
+def _small(path, size=8):
+    scene = load_scene(path, device="cpu")
+    cam = scene.meta.camera
+    new = Camera(size, size, cam.lookfrom, cam.lookat, cam.up, cam.vfov)
+    return dataclasses.replace(scene, meta=dataclasses.replace(scene.meta, camera=new))
+
+
+@pytest.mark.parametrize("name", ["cbox", "room"])
+def test_passes_without_disney_or_envmap_mark_as_before(name):
+    """cbox (brute force) and room (BVH) have no Disney material and no
+    environment map: a pass emits the sequence it emitted before the
+    `disney` and `envmap` phases existed."""
+    tracing.enable()
+    render.render_image(_small(os.path.join(SCENES, name, f"{name}.xml")), OPTS)
+    assert tracing.marks() == [("forward", p) for p in CAMERA + BOUNCE * 3 + ["end"]]
+
+
+def test_ibl_pass_marks_disney_and_envmap():
+    """An ibl pass marks `envmap` at the camera vertex's escape and at each
+    bounce's environment sample, lookup, pdf and escape, and `disney` in
+    each BSDF dispatch for each Disney material (disneymetal, disneybsdf);
+    each such mark is followed by a mark back to the phase it interrupted,
+    and without them the sequence is cbox's."""
+    scene = _small(os.path.join(SCENES, "ibl", "ibl.xml"))
+    tracing.enable()
+    render.render_image(scene, OPTS)
+    m = [p for _, p in tracing.marks()]
+    assert {s for s, _ in tracing.marks()} == {"forward"}
+    nested = [i for i, p in enumerate(m) if p in ("disney", "envmap")]
+    for i in nested:
+        assert m[i + 1] == m[i - 1] and m[i + 1] not in ("disney", "envmap")
+    drop = set(nested) | {i + 1 for i in nested}
+    assert [p for i, p in enumerate(m) if i not in drop] == CAMERA + BOUNCE * 3 + ["end"]
+    n_disney = sum(t in disney.TAGS for t in scene.meta.used_material_tags)
+    assert n_disney == 2
+    assert m.count("envmap") == 1 + 4 * 3  # the camera's escape; per bounce sample, eval, pdf, escape
+    assert m.count("disney") == 4 * 3 * n_disney  # per bounce NEE's eval and pdf, the sample and its eval
+
+
+def test_phase_resumes_what_it_interrupted():
+    """tracing.phase marks its phase and then the one it interrupted, in the
+    current stage; with none begun it resumes `end` (unmarked); off, it
+    marks nothing."""
+    with tracing.phase("disney"):
+        pass
+    assert tracing.marks() == []
+    tracing.enable()
+    with tracing.phase("envmap"):
+        pass
+    tracing.mark("light")
+    with tracing.phase("envmap"):
+        tracing.mark("occlusion")
+    with tracing.stage("backward"):
+        tracing.mark("vjp")
+        with tracing.phase("disney"):
+            pass
+    assert tracing.marks() == [("forward", "envmap"), ("forward", "end"), ("forward", "light"),
+                               ("forward", "envmap"), ("forward", "occlusion"), ("forward", "light"),
+                               ("backward", "vjp"), ("backward", "disney"), ("backward", "vjp")]

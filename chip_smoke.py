@@ -15,8 +15,14 @@ hold the two modes against each other:
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
      source, all started together, and prints each kernel's registers,
-     shared memory, stack frame and spills (every kernel, K1-K6, must have
-     no stack frame and no spills);
+     shared memory, stack frame and spills (every kernel, K1-K6, the RNG's
+     and the Disney lobes', must have no stack frame and no spills);
+  rng, disney: the counter RNG's kernels (csrc/rng.cu) and the Disney
+     lobes' (csrc/disney.cu: sample, eval and pdf at ibl's chrome and
+     composite) on 2^20 lanes against their plain versions (the RNG bit for
+     bit; the lobes bit for bit on all but a handful of lanes), each timed
+     from a captured graph beside its bytes bound and the plain version's
+     time;
   cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
   brute-force path, K1/K2):
   3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
@@ -237,7 +243,7 @@ GRAPH_IBL_SPP = 16  # ibl's spp in the graph phase, eager and graph in turns (cu
 # a pixel regrouped from k = 1 to k = 2 sums the same 16 nonnegative float32
 # samples in another order: within 15 roundings, 15 x 2^-24 = 9e-7 of the pixel
 SUM_REL = 1e-5
-SOURCES = ("brute", "traverse", "cluster", "sweep", "rng")
+SOURCES = ("brute", "traverse", "cluster", "sweep", "rng", "disney")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
 # t/u/v of agreeing hits must lie within the float32 rounding bound of
@@ -290,7 +296,8 @@ def ptxas_report(log):
 
 def build_phase(_build, modules):
     """nvcc for every source at once, then load each library. Every kernel
-    (K1-K6 and the RNG's) must report 0 bytes of stack frame and no spills."""
+    (K1-K6, the RNG's and the Disney lobes') must report 0 bytes of stack
+    frame and no spills."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
@@ -331,6 +338,31 @@ RNG_SETS = 8  # input sets the timed calls cycle through: 8 x 16 MB of streams, 
 # (int64); a draw reads hi and lo and writes a float, and reads an int64
 # counter more in the per-lane form
 RNG_STREAM_BYTES, RNG_DRAW_BYTES, RNG_COUNTER_BYTES = 24, 20, 8
+
+# the Disney lobes' kernels (csrc/disney.cu): lanes a call (a pass's paths),
+# input sets the timed calls cycle through (each ~150 MB with its material
+# rows, more than the 50 MB L2), ibl's two materials (scenes/ibl/ibl.xml)
+DISNEY_LANES, DISNEY_SETS = 1 << 20, 2
+IBL_COMPOSITE = dict(tex_value=(0.7, 0.2, 0.15), roughness=0.4, metallic=0.3, clearcoat=0.5)
+IBL_CHROME = dict(tex_value=(0.95, 0.95, 0.95), roughness=0.1)
+# bytes a lane needs, each input read once and each output written once:
+# the tag (4), the front flag (1, glass and the composite), the normals and
+# dir_in (36), dir_out (12, eval and pdf), refl (12, eval), the material's
+# scalars the lobes read (metal 2; the composite's eval 12, its pdf and
+# sample 7), the uniforms (sample: metal 2, the composite 4), and the output
+# (dir_out and pdf 16, f 12, pdf 4)
+DISNEY_BYTES = {("metal", "sample"): 4 + 36 + 8 + 8 + 16, ("metal", "eval"): 4 + 48 + 12 + 8 + 12,
+                ("metal", "pdf"): 4 + 48 + 8 + 4, ("disneybsdf", "sample"): 4 + 1 + 36 + 28 + 16 + 16,
+                ("disneybsdf", "eval"): 4 + 1 + 48 + 12 + 48 + 12, ("disneybsdf", "pdf"): 4 + 1 + 48 + 28 + 4}
+# the kernels against the plain version: lanes bit-equal at least, lanes
+# more than 4 ulps apart at most (a last-bit difference that flips a
+# decision at a threshold), lanes whose pdf is 0 on one side only at most;
+# each a handful of a 2^20-lane call (every lane was bit-equal on the
+# card's 7 cases x 3 entries x 2^20 lanes: PERF.md)
+DISNEY_BIT_SHARE, DISNEY_ULP_LANES, DISNEY_ZERO_FLIPS = 1 - 1e-5, 1e-5, 1e-5
+DISNEY_COLUMNS = {name: 10 + k for k, name in enumerate((  # scene/types.py's MATTR_ETA ... MATTR_CLEARCOAT_GLOSS
+    "eta", "exponent", "roughness", "subsurface", "anisotropic", "metallic", "spec_trans", "specular",
+    "specular_tint", "sheen", "sheen_tint", "clearcoat", "clearcoat_gloss"))}
 
 
 def graph_ms(torch, fn, calls=64, replays=5):
@@ -394,6 +426,155 @@ def rng_cell(torch, dev):
         rows.append(f"{name} {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}%), "
                     f"plain {plain_ms * 1e3:.1f} us ({plain_ms / ms:.1f}x)")
     phase("rng", f"{n} lanes, each equal to its plain version bit for bit, times from a graph: " + "; ".join(rows))
+    return out
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def disney_directions(g, geo_n):
+    """Unit directions: a third in front of geo_n, a third behind it, a
+    third grazing it (within ~1e-3 of its plane, either side)."""
+    n = geo_n.shape[0]
+    d = _unit(g.normal(size=(n, 3)))
+    side = np.sign(np.sum(d * geo_n, axis=1, keepdims=True))
+    third = n // 3
+    d[:third] *= side[:third]
+    d[third:2 * third] *= -side[third:2 * third]
+    tangent = _unit(np.cross(geo_n[2 * third:], d[2 * third:]))
+    return np.concatenate([d[:2 * third], _unit(tangent + g.uniform(-1e-3, 1e-3, (n - 2 * third, 1))
+                                                * geo_n[2 * third:])])
+
+
+def disney_lanes(tag, n, seed, device, params=None):
+    """(ShadePoint, dir_in, u_lobe, u1, u2, u3) for n lanes drawn with numpy:
+    a tenth of the lanes of other tags (diffuse and the other Disney tags),
+    both sides (`front`), the material's scalars columns of one [n, 24] row
+    tensor as make_shade_point gathers them (`params` fixes them, as a
+    scene's material does; else each lane draws its own, specTrans > 0
+    included, with edge values), shading normals tilted off the geometric
+    ones, dir_in in front, behind and grazing, and 24-bit uniforms as the
+    counter RNG draws them."""
+    import torch
+
+    from take_tpu_torch.materials import bsdf, disney
+    from take_tpu_torch.scene import types as ST
+
+    g = np.random.default_rng(seed)
+    rows = np.zeros((n, ST.MATTR_DIM), np.float32)
+    rows[:, ST.MATTR_TAG] = np.where(g.random(n) < 0.1, g.choice([0] + [t for t in disney.TAGS if t != tag], n), tag)
+    if params is None:
+        for col in DISNEY_COLUMNS.values():
+            rows[:, col] = g.random(n)
+        rows[:, ST.MATTR_TEX_VALUE:ST.MATTR_TEX_VALUE + 3] = g.random((n, 3))
+        rows[:, ST.MATTR_ETA] = g.uniform(1.0, 2.5, n)
+        for col in (ST.MATTR_ROUGHNESS, ST.MATTR_METALLIC, ST.MATTR_SPEC_TRANS, ST.MATTR_CLEARCOAT_GLOSS,
+                    ST.MATTR_ANISOTROPIC):
+            edge = g.random(n) < 0.05
+            rows[edge, col] = g.choice([0.0, 1.0], int(edge.sum()))
+    else:
+        rows[:, ST.MATTR_ETA] = 1.5
+        for name, value in params.items():
+            if name == "tex_value":
+                rows[:, ST.MATTR_TEX_VALUE:ST.MATTR_TEX_VALUE + 3] = value
+            else:
+                rows[:, DISNEY_COLUMNS[name]] = value
+    geo_n = _unit(g.normal(size=(n, 3)))
+    sh_n = _unit(_unit(g.normal(size=(n, 3))) * 0.2 + geo_n)
+    dir_in = disney_directions(g, geo_n)
+    p = torch.from_numpy(rows).to(device)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    sp = bsdf.ShadePoint(
+        tag=p[:, ST.MATTR_TAG].to(torch.int32), geo_n=f32(geo_n), sh_n=f32(sh_n),
+        refl=p[:, ST.MATTR_TEX_VALUE:ST.MATTR_TEX_VALUE + 3], front=torch.from_numpy(g.random(n) < 0.5).to(device),
+        **{name: p[:, col] for name, col in DISNEY_COLUMNS.items()})
+    u = [f32(np.floor(g.random(n) * (1 << 24)) / (1 << 24)) for _ in range(4)]
+    return sp, f32(dir_in), *u
+
+
+def disney_dir_out(tag, sp, dir_in, u, seed):
+    """dir_out for eval and pdf: on even lanes the plain version's own
+    samples (so that sharp lobes are hit), on odd lanes directions in
+    front, behind and grazing."""
+    import torch
+
+    from take_tpu_torch.materials import disney
+
+    n, dev = dir_in.shape[0], dir_in.device
+    d, _ = disney._sample_plain(tag, sp, dir_in, *u)
+    other = torch.from_numpy(disney_directions(np.random.default_rng(seed + 1), sp.geo_n.cpu().numpy())
+                             .astype(np.float32)).to(dev)
+    return torch.where((torch.arange(n, device=dev) % 2 == 0)[:, None], d, other)
+
+
+def _ordered(x):
+    """float32 bits as integers in the floats' order (for ulp distances)."""
+    import torch
+
+    b = x.contiguous().view(torch.int32).long()
+    return torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+
+def agreement(got, want):
+    """(share of lanes equal in every component, NaN to NaN; the largest ulp
+    distance of a lane; lanes more than 4 ulps apart)."""
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    same = (got == want) | (got.isnan() & want.isnan())
+    lane = (_ordered(got) - _ordered(want)).abs().masked_fill(same, 0).amax(1)
+    return float((lane == 0).double().mean()), int(lane.max()) if lane.numel() else 0, int((lane > 4).sum())
+
+
+def disney_cell(torch, dev):
+    """The Disney lobes' kernels (csrc/disney.cu) on DISNEY_LANES lanes at
+    ibl's two materials (chrome `disneymetal`, the `disneybsdf` composite),
+    each of sample, eval and pdf: held against the plain version (bit for
+    bit on at least DISNEY_BIT_SHARE of the lanes, more than 4 ulps apart on
+    at most DISNEY_ULP_LANES, the pdf's zero decisions flipped on at most
+    DISNEY_ZERO_FLIPS; lanes of other tags 0), and timed from a captured
+    graph cycling through DISNEY_SETS input sets (graph_ms: the inputs come
+    from device memory) beside its bytes bound and the plain version's
+    time; returns {name: times}."""
+    from take_tpu_torch.materials import disney
+    from take_tpu_torch.scene import types as ST
+
+    n, out, rows = DISNEY_LANES, {}, []
+    for name, tag, params in (("metal", ST.MAT_DISNEY_METAL, IBL_CHROME),
+                              ("disneybsdf", ST.MAT_DISNEY_BSDF, IBL_COMPOSITE)):
+        sets = []
+        for k in range(DISNEY_SETS):
+            sp, dir_in, *u = disney_lanes(tag, n, 40 + 2 * tag + k, dev, params)
+            sets.append((sp, dir_in, u, disney_dir_out(tag, sp, dir_in, u, 40 + 2 * tag + k)))
+        for entry in ("sample", "eval", "pdf"):
+            def call(fn, k, entry=entry):
+                sp, dir_in, u, dir_out = sets[k % DISNEY_SETS]
+                return fn(entry, tag, sp, dir_in, *(u if entry == "sample" else [dir_out]))
+
+            share, ulps, flips = 1.0, 0, 0
+            for k in range(DISNEY_SETS):
+                got, want = call(disney._launch, k), call(lambda e, *a: disney._PLAIN[e](*a), k)
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                mine = sets[k][0].tag == tag
+                for a, b in zip(got, want):
+                    same, most, far = agreement(a[mine], b[mine])
+                    if bool((a[~mine] != 0).any()) or same < DISNEY_BIT_SHARE or far > DISNEY_ULP_LANES * n:
+                        raise RuntimeError(f"disney {name} {entry}: the kernel differs from the plain version "
+                                           f"(bit-equal {same:.6f}, lanes beyond 4 ulps {far}, largest {most})")
+                    share, ulps = min(share, same), max(ulps, most)
+                if entry != "eval":  # the pdf: zero on one side only
+                    flips = max(flips, int(((got[-1][mine] > 0) != (want[-1][mine] > 0)).sum()))
+                    if flips > DISNEY_ZERO_FLIPS * n:
+                        raise RuntimeError(f"disney {name} {entry}: {flips} lanes' pdf is 0 on one side only")
+            ms = graph_ms(torch, lambda k: call(disney._launch, k))
+            plain_ms = graph_ms(torch, lambda k: call(lambda e, *a: disney._PLAIN[e](*a), k), calls=4, replays=3)
+            bound_ms, _ = bound(DISNEY_BYTES[name, entry] * n, 0)
+            key = f"{name}_{entry}"
+            out[key] = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms, "bit_equal": share, "max_ulps": ulps,
+                        "zero_flips": flips}
+            rows.append(f"{key} {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}%), "
+                        f"plain {plain_ms * 1e3:.1f} us ({plain_ms / ms:.1f}x), bit-equal {100 * share:.4f}% "
+                        f"of lanes, largest {ulps} ulps, pdf zero flips {flips}")
+    phase("disney", f"{n} lanes at ibl's materials, times from a graph: " + "; ".join(rows))
     return out
 
 
@@ -2527,12 +2708,14 @@ def main():
     sys.path.insert(0, str(ROOT))
     from take_tpu_torch.core import rng
     from take_tpu_torch.geometry import _build, brute, cluster, packet, sweep
+    from take_tpu_torch.materials import disney
     from take_tpu_torch.render import clear_cache
     from take_tpu_torch.scene.types import scene_to
 
-    build_phase(_build, (brute, packet, cluster, sweep, rng))
+    build_phase(_build, (brute, packet, cluster, sweep, rng, disney))
     dev = torch.device(DEVICE)
     rng_times = rng_cell(torch, dev)
+    disney_times = disney_cell(torch, dev)
     out_dir = ROOT / "build" / "take_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -2573,7 +2756,7 @@ def main():
           f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}; parallel {launches_par}; "
           f"bench {launches_bench}; room grad {launches_room_grad}; inverse step {launches_inverse}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "rng": rng_times}))
+    print(json.dumps({"kernels": kernels, "rng": rng_times, "disney": disney_times}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

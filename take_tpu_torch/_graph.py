@@ -29,12 +29,14 @@ used, never over memory that anything still reads. The static inputs are
 allocated outside the pool.
 
 The kernel wrappers count launches in Python (geometry/_launch.py, and
-core/rng.py for the RNG's kernels). A capture calls them, but nothing runs
-then; a replay runs their kernels without calling them. So what a capture
-counts is taken back out of `_launch.LAUNCHES` and `rng.LAUNCHES` and added
-in again at every replay: both count what ran (the warm-up ran, and
-counts). The RNG's kernels are launched once, uncounted, before the
-warm-up, so that none is loaded while a graph is being captured.
+core/rng.py and materials/disney.py for the RNG's and the Disney lobes'
+kernels). A capture calls them, but nothing runs then; a replay runs their
+kernels without calling them. So what a capture counts is taken back out
+of `_launch.LAUNCHES`, `rng.LAUNCHES` and `disney.LAUNCHES` and added in
+again at every replay: they count what ran (the warm-up ran, and counts).
+The RNG's and the Disney lobes' kernels are launched once, uncounted,
+before the warm-up, so that none is loaded while a graph is being
+captured.
 
 With tracing on (tracing.py), `run` times its steps as spans
 (take.graph.copy_in, take.graph.replay, take.graph.clone_out; a key's first
@@ -55,9 +57,10 @@ import torch
 from take_tpu_torch import tracing
 from take_tpu_torch.core import rng
 from take_tpu_torch.geometry import _launch
+from take_tpu_torch.materials import disney
 
 MAX_GRAPHS = 48  # graphs kept, the least recently used dropped first
-COUNTERS = (_launch.LAUNCHES, rng.LAUNCHES)  # the launch counters a capture keeps; no key is in both
+COUNTERS = (_launch.LAUNCHES, rng.LAUNCHES, disney.LAUNCHES)  # the launch counters a capture keeps; no key is in two
 
 
 @dataclasses.dataclass
@@ -67,7 +70,7 @@ class Captured:
     graph: object  # torch.cuda.CUDAGraph
     inputs: list  # the static input and param buffers the graph reads
     output: object  # the tensor, or tuple of tensors (and Nones), the graph writes
-    launches: dict  # kernel launches of one replay, by key of _launch.LAUNCHES or rng.LAUNCHES
+    launches: dict  # kernel launches of one replay, by key of the COUNTERS
     hold: object  # what the graph reads and must outlive it (the scene)
 
 
@@ -101,6 +104,7 @@ def _capture(body, inputs, params, hold):
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         rng.load_kernels()
+        disney.load_kernels()
         if tracing.enabled():
             tracing.load_marks()
         body(*static)

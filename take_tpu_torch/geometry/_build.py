@@ -5,7 +5,7 @@ shared library with a plain C interface under `build/take_tpu_torch/` at
 the root of the checkout. The file name carries a hash of the source, the
 shared headers (csrc/*.cuh) and the flags, so an edited source builds anew
 and an unchanged one loads the library already built. A failed build raises
-with nvcc's output.
+with nvcc's output. A source may add flags of its own (SOURCE_FLAGS).
 """
 
 import ctypes
@@ -26,6 +26,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# disney.cu rounds every float operation as torch's separate kernels do: no
+# product is contracted into an FMA that the plain version rounds twice
+SOURCE_FLAGS = {"disney": ("--fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -47,8 +50,9 @@ def build(name: str) -> tuple[Path, float, str]:
     the output holds ptxas's register and shared-memory report.
     """
     src = CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()))
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
@@ -57,7 +61,7 @@ def build(name: str) -> tuple[Path, float, str]:
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0

@@ -22,7 +22,17 @@ computes the same expressions in the same order:
 
 eval returns BRDF * cos folded together; pdfs are solid-angle; dir_in
 points away from the surface. Every function is batched [N] and branch-free.
+
+On CUDA tensors `sample`, `eval` and `pdf` launch the hand-written kernels
+of csrc/disney.cu, one launch a call, or raise; under autograd through an
+autograd Function whose backward is the plain lobes'. On CPU tensors they
+run the plain versions below (`_sample_plain`, `_eval_plain`,
+`_pdf_plain`), whose arithmetic the kernels repeat. `LAUNCHES` counts what
+ran: each kernel launch, and each call of a plain version.
 """
+
+import ctypes
+import functools
 
 import torch
 
@@ -30,6 +40,7 @@ from take_tpu_torch.core.math import (
     C_INVPI, C_PI, C_TWOPI, constant, cross, dot, face_forward, normalize, reflect, to_world,
 )
 from take_tpu_torch.core.sampling import sample_hemisphere_cos
+from take_tpu_torch.geometry._launch import raise_on
 from take_tpu_torch.materials import bsdf
 from take_tpu_torch.scene.types import (
     MAT_DISNEY_BSDF,
@@ -48,6 +59,13 @@ TAGS = (
 )
 
 _MIN_ALPHA = 1e-4
+
+LAUNCHES = {"sample": 0, "eval": 0, "pdf": 0, "sample_plain": 0, "eval_plain": 0, "pdf_plain": 0}
+
+
+def reset_launches():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _luminance(c):
@@ -473,9 +491,7 @@ def _disney_bsdf_sample(sp, dir_in, u_lobe, u1, u2, u3):
 # -- Dispatch (materials/bsdf.py calls these for TAGS) --
 
 
-def sample(tag, sp, dir_in, u_lobe, u1, u2, u3=None):
-    if u3 is None:
-        u3 = u_lobe
+def _sample_plain(tag, sp, dir_in, u_lobe, u1, u2, u3):
     if tag == MAT_DISNEY_METAL:
         return _metal_sample(sp, dir_in, u1, u2)
     if tag == MAT_DISNEY_GLASS:
@@ -489,7 +505,7 @@ def sample(tag, sp, dir_in, u_lobe, u1, u2, u3=None):
     raise NotImplementedError(tag)
 
 
-def eval(tag, sp, dir_in, dir_out):
+def _eval_plain(tag, sp, dir_in, dir_out):
     if tag == MAT_DISNEY_METAL:
         return _metal_eval(sp, dir_in, dir_out)
     if tag == MAT_DISNEY_GLASS:
@@ -503,7 +519,7 @@ def eval(tag, sp, dir_in, dir_out):
     raise NotImplementedError(tag)
 
 
-def pdf(tag, sp, dir_in, dir_out):
+def _pdf_plain(tag, sp, dir_in, dir_out):
     if tag == MAT_DISNEY_METAL:
         return _metal_pdf(sp, dir_in, dir_out)
     if tag == MAT_DISNEY_GLASS:
@@ -515,3 +531,183 @@ def pdf(tag, sp, dir_in, dir_out):
     if tag == MAT_DISNEY_BSDF:
         return _disney_bsdf_pdf(sp, dir_in, dir_out)
     raise NotImplementedError(tag)
+
+
+_PLAIN = {"sample": _sample_plain, "eval": _eval_plain, "pdf": _pdf_plain}
+
+
+# -- The kernels (csrc/disney.cu) --
+
+
+class _Field(ctypes.Structure):
+    """A field of disney.cu's Inputs: lane i at p[i * s]."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("s", ctypes.c_int64)]
+
+
+# disney.cu's Inputs, field for field: the ShadePoint's fields it reads,
+# the directions, the uniforms and the lane count
+_VECTORS = ("refl", "geo_n", "sh_n", "dir_in", "dir_out")
+_SCALARS = ("eta", "roughness", "subsurface", "anisotropic", "metallic", "spec_trans", "specular", "specular_tint",
+            "sheen", "sheen_tint", "clearcoat", "clearcoat_gloss")
+_UNIFORMS = ("u_lobe", "u1", "u2", "u3")
+
+
+class _Inputs(ctypes.Structure):
+    _fields_ = [(name, _Field) for name in ("tag", "front", *_VECTORS, *_SCALARS, *_UNIFORMS)] + [("n", ctypes.c_int64)]
+
+
+@functools.cache
+def _lib():
+    from take_tpu_torch.geometry import _build
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = _build.load("disney")
+    lib.tt_disney_sample.argtypes = [P, I, P, P, P]
+    lib.tt_disney_eval.argtypes = [P, I, P, P]
+    lib.tt_disney_pdf.argtypes = [P, I, P, P]
+    for fn in (lib.tt_disney_sample, lib.tt_disney_eval, lib.tt_disney_pdf):
+        fn.restype = I
+    return lib
+
+
+def _field(name, x, n, dtype, width, device):
+    """x as a field of Inputs, read in place: a `dtype` tensor on `device`
+    of shape [n] or [n, width], the last axis of unit stride."""
+    shape = (n,) if width == 1 else (n, width)
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or (width > 1 and x.stride(1) != 1):
+        raise ValueError(f"{name}: expected a {dtype} tensor of shape {shape} on {device} with a unit stride on "
+                         f"its last axis, got {x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
+    return _Field(x.data_ptr(), x.stride(0))
+
+
+def _inputs(sp, dir_in, dir_out, uniforms):
+    """disney.cu's Inputs for a call: every field a pointer into its tensor
+    and a row stride, with no copy. float32 only."""
+    n, dev = dir_in.shape[0], dir_in.device
+    ins = _Inputs(n=n)
+    ins.tag = _field("tag", sp.tag, n, torch.int32, 1, dev)
+    ins.front = _field("front", sp.front, n, torch.bool, 1, dev)
+    vectors = {"refl": sp.refl, "geo_n": sp.geo_n, "sh_n": sp.sh_n, "dir_in": dir_in, "dir_out": dir_out}
+    for name, x in vectors.items():
+        if x is not None:
+            setattr(ins, name, _field(name, x, n, torch.float32, 3, dev))
+    for name in _SCALARS:
+        setattr(ins, name, _field(name, getattr(sp, name), n, torch.float32, 1, dev))
+    for name, u in zip(_UNIFORMS, uniforms):
+        setattr(ins, name, _field(name, u, n, torch.float32, 1, dev))
+    return ins
+
+
+def _launch(entry, tag, sp, dir_in, *rest):
+    """One launch of take_disney_<entry> for `tag`: (dir_out [N, 3], pdf
+    [N]) for sample (rest: u_lobe, u1, u2, u3), f [N, 3] for eval and pdf
+    [N] for pdf (rest: dir_out). Lanes of other tags read 0."""
+    n, dev = dir_in.shape[0], dir_in.device
+    ins = _inputs(sp, dir_in, rest[0] if entry != "sample" else None, rest if entry == "sample" else ())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if entry == "sample":
+        d, p = torch.empty((n, 3), dtype=torch.float32, device=dev), torch.empty(n, dtype=torch.float32, device=dev)
+        if n:
+            raise_on(_lib(), _lib().tt_disney_sample(ctypes.byref(ins), tag, d.data_ptr(), p.data_ptr(), stream),
+                     "take_disney_sample")
+        return d, p
+    out = torch.empty((n, 3) if entry == "eval" else (n,), dtype=torch.float32, device=dev)
+    if n:
+        fn = _lib().tt_disney_eval if entry == "eval" else _lib().tt_disney_pdf
+        raise_on(_lib(), fn(ctypes.byref(ins), tag, out.data_ptr(), stream), f"take_disney_{entry}")
+    return out
+
+
+class _Lobes(torch.autograd.Function):
+    """take_disney_<entry> forward. The backward computes the plain lobes
+    again on detached inputs and pulls the cotangent through them, so that
+    gradients through the kernel are the plain version's. apply(tag,
+    ShadePoint class, *its fields, dir_in, *rest)."""
+
+    entry = None
+
+    @classmethod
+    def forward(cls, ctx, tag, sp_type, *xs):
+        k = len(sp_type._fields)
+        ctx.tag, ctx.sp_type = tag, sp_type
+        ctx.save_for_backward(*xs)
+        return _launch(cls.entry, tag, sp_type(*xs[:k]), *xs[k:])
+
+    @classmethod
+    def backward(cls, ctx, *grads):
+        xs, need = ctx.saved_tensors, ctx.needs_input_grad[2:]
+        k = len(ctx.sp_type._fields)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(want) for x, want in zip(xs, need)]
+            outs = _PLAIN[cls.entry](ctx.tag, ctx.sp_type(*leaves[:k]), *leaves[k:])
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pulled = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            wanted = [x for x in leaves if x.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pulled], wanted, [g for _, g in pulled], allow_unused=True)
+                       if pulled and wanted else [None] * len(wanted))
+        return (None, None, *[next(got) if want else None for want in need])
+
+
+class _Sample(_Lobes):
+    entry = "sample"
+
+
+class _Eval(_Lobes):
+    entry = "eval"
+
+
+class _Pdf(_Lobes):
+    entry = "pdf"
+
+
+_FUNCTIONS = {"sample": _Sample, "eval": _Eval, "pdf": _Pdf}
+
+
+def _route(entry, tag, sp, dir_in, *rest):
+    """The kernel for CUDA tensors (through its autograd Function where a
+    gradient is wanted), the plain version for CPU tensors."""
+    if tag not in TAGS:
+        raise NotImplementedError(tag)
+    if not dir_in.is_cuda:
+        LAUNCHES[f"{entry}_plain"] += 1
+        return _PLAIN[entry](tag, sp, dir_in, *rest)
+    xs = (*sp, dir_in, *rest)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        out = _FUNCTIONS[entry].apply(tag, type(sp), *xs)
+    else:
+        out = _launch(entry, tag, sp, dir_in, *rest)
+    LAUNCHES[entry] += 1
+    return out
+
+
+def sample(tag, sp, dir_in, u_lobe, u1, u2, u3=None):
+    """(dir_out [N, 3], pdf [N]) of the Disney lobe `tag` at every lane."""
+    return _route("sample", tag, sp, dir_in, u_lobe, u1, u2, u_lobe if u3 is None else u3)
+
+
+def eval(tag, sp, dir_in, dir_out):
+    """BSDF value times cos(theta_out), [N, 3], of the Disney lobe `tag`."""
+    return _route("eval", tag, sp, dir_in, dir_out)
+
+
+def pdf(tag, sp, dir_in, dir_out):
+    """Solid-angle pdf [N] of the Disney lobe `tag` sampling dir_out."""
+    return _route("pdf", tag, sp, dir_in, dir_out)
+
+
+def load_kernels():
+    """Build and load csrc/disney.cu and launch each kernel once on the
+    current stream, on one lane of no Disney tag, uncounted, so that none is
+    loaded while a graph is being captured (no-op without a card)."""
+    if not torch.cuda.is_available():
+        return
+    from take_tpu_torch.materials.bsdf import ShadePoint
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    zero, v = torch.zeros(1, device=dev), torch.zeros((1, 3), device=dev)
+    sp = ShadePoint(*(v if name in _VECTORS else zero for name in ShadePoint._fields))._replace(
+        tag=torch.zeros(1, dtype=torch.int32, device=dev), front=torch.ones(1, dtype=torch.bool, device=dev))
+    _launch("sample", MAT_DISNEY_BSDF, sp, v, zero, zero, zero, zero)
+    _launch("eval", MAT_DISNEY_BSDF, sp, v, v)
+    _launch("pdf", MAT_DISNEY_BSDF, sp, v, v)

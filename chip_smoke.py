@@ -14,9 +14,10 @@ hold the two modes against each other:
 
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from take_tpu_torch/csrc, one nvcc per
-     source, all started together, and prints each kernel's registers,
-     shared memory, stack frame and spills (every kernel, K1-K6, the RNG's
-     and the Disney lobes', must have no stack frame and no spills);
+     source declared with the kernel runtime (geometry/_launch.py), all
+     started together, and prints each kernel's registers, shared memory,
+     stack frame and spills (every kernel, K1-K6, the RNG's, the Disney
+     lobes' and the marks, must have no stack frame and no spills);
   rng, disney: the counter RNG's kernels (csrc/rng.cu) and the Disney
      lobes' (csrc/disney.cu: sample, eval and pdf at ibl's chrome and
      composite) on 2^20 lanes against their plain versions (the RNG bit for
@@ -243,7 +244,6 @@ GRAPH_IBL_SPP = 16  # ibl's spp in the graph phase, eager and graph in turns (cu
 # a pixel regrouped from k = 1 to k = 2 sums the same 16 nonnegative float32
 # samples in another order: within 15 roundings, 15 x 2^-24 = 9e-7 of the pixel
 SUM_REL = 1e-5
-SOURCES = ("brute", "traverse", "cluster", "sweep", "rng", "disney")
 N_RAYS = 1 << 20
 PRIM_AGREE_MIN = 0.9999  # fraction of rays whose winner index must agree
 # t/u/v of agreeing hits must lie within the float32 rounding bound of
@@ -294,15 +294,16 @@ def ptxas_report(log):
     return out
 
 
-def build_phase(_build, modules):
-    """nvcc for every source at once, then load each library. Every kernel
-    (K1-K6, the RNG's and the Disney lobes') must report 0 bytes of stack
-    frame and no spills."""
+def build_phase(_build, _launch):
+    """nvcc for every declared source at once, then load each library. Every
+    kernel (K1-K6, the RNG's, the Disney lobes' and the marks) must report
+    0 bytes of stack frame and no spills."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
-    for module in modules:
-        module._lib()
+    sources = _launch.SOURCES
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(lambda name: _build.build(name, sources[name].flags), sources)))
+    for source in sources.values():
+        source.lib()
     for lib, nvcc_s, log in built.values():
         report = ptxas_report(log)
         phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; "
@@ -310,7 +311,7 @@ def build_phase(_build, modules):
         if not report or any(
                 frame != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for _, _, frame in report):
             raise RuntimeError(f"{lib.name}'s kernels use local memory: {report}")
-    phase("build", f"{len(SOURCES)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
+    phase("build", f"{len(sources)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
 
 
 # The bound of a kernel call: the larger of its bytes over the memory rate
@@ -2706,13 +2707,11 @@ def main():
             p.is_file() for p in (SCENE, ROOM, MIS, TEXTURED, IBL)):
         raise RuntimeError(f"{ROOT} is not a checkout of the repo (no take_tpu_torch/ or scenes/)")
     sys.path.insert(0, str(ROOT))
-    from take_tpu_torch.core import rng
-    from take_tpu_torch.geometry import _build, brute, cluster, packet, sweep
-    from take_tpu_torch.materials import disney
-    from take_tpu_torch.render import clear_cache
+    from take_tpu_torch.geometry import _build, _launch
+    from take_tpu_torch.render import clear_cache  # and with it every kernel wrapper, each declaring its source
     from take_tpu_torch.scene.types import scene_to
 
-    build_phase(_build, (brute, packet, cluster, sweep, rng, disney))
+    build_phase(_build, _launch)
     dev = torch.device(DEVICE)
     rng_times = rng_cell(torch, dev)
     disney_times = disney_cell(torch, dev)

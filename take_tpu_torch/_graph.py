@@ -28,20 +28,17 @@ a replay may write over memory that another graph's output or intermediates
 used, never over memory that anything still reads. The static inputs are
 allocated outside the pool.
 
-The kernel wrappers count launches in Python (geometry/_launch.py, and
-core/rng.py and materials/disney.py for the RNG's and the Disney lobes'
-kernels). A capture calls them, but nothing runs then; a replay runs their
-kernels without calling them. So what a capture counts is taken back out
-of `_launch.LAUNCHES`, `rng.LAUNCHES` and `disney.LAUNCHES` and added in
-again at every replay: they count what ran (the warm-up ran, and counts).
-The RNG's and the Disney lobes' kernels are launched once, uncounted,
-before the warm-up, so that none is loaded while a graph is being
-captured.
+The kernel wrappers count launches in Python, in the counters registered
+with the kernel runtime (geometry/_launch.py). A capture calls them, but
+nothing runs then; a replay runs their kernels without calling them. So
+what a capture counts is taken back out of the counters and added in again
+at every replay: they count what ran (the warm-up ran, and counts). Before
+the warm-up, `_launch.warm()` launches every declared kernel once, so that
+none is loaded while a graph is being captured.
 
 With tracing on (tracing.py), `run` times its steps as spans
 (take.graph.copy_in, take.graph.replay, take.graph.clone_out; a key's first
-call take.graph.capture, the body's recording, and take.graph.instantiate),
-and the mark kernels are launched once before a capture records them.
+call take.graph.capture, the body's recording, and take.graph.instantiate).
 
 A capture or a replay that fails raises; nothing retries eagerly. A
 capture refuses calls that are unsafe under capture from its own thread
@@ -55,12 +52,9 @@ import dataclasses
 import torch
 
 from take_tpu_torch import tracing
-from take_tpu_torch.core import rng
 from take_tpu_torch.geometry import _launch
-from take_tpu_torch.materials import disney
 
 MAX_GRAPHS = 48  # graphs kept, the least recently used dropped first
-COUNTERS = (_launch.LAUNCHES, rng.LAUNCHES, disney.LAUNCHES)  # the launch counters a capture keeps; no key is in two
 
 
 @dataclasses.dataclass
@@ -70,7 +64,7 @@ class Captured:
     graph: object  # torch.cuda.CUDAGraph
     inputs: list  # the static input and param buffers the graph reads
     output: object  # the tensor, or tuple of tensors (and Nones), the graph writes
-    launches: dict  # kernel launches of one replay, by key of the COUNTERS
+    launches: dict  # kernel launches of one replay, by key of _launch.COUNTED
     hold: object  # what the graph reads and must outlive it (the scene)
 
 
@@ -79,19 +73,19 @@ _POOLS = {}  # device -> graph_pool_handle()
 
 
 def add_launches(delta, times=1):
-    """Add `times` x `delta` ({key: count}) to the COUNTERS that hold each key."""
+    """Add `times` x `delta` ({key: count}) to the counters that hold each key."""
     for key, n in delta.items():
-        next(c for c in COUNTERS if key in c)[key] += times * n
+        _launch.COUNTED[key][key] += times * n
 
 
 def uncounted(fn):
     """(fn(), the launches it counted), with those counts taken back out of
-    the COUNTERS, also when fn raises."""
-    before = {k: n for c in COUNTERS for k, n in c.items()}
+    the counters, also when fn raises."""
+    before = {k: c[k] for k, c in _launch.COUNTED.items()}
     try:
         out = fn()
     finally:
-        delta = {k: n - before[k] for c in COUNTERS for k, n in c.items() if n != before[k]}
+        delta = {k: c[k] - before[k] for k, c in _launch.COUNTED.items() if c[k] != before[k]}
         add_launches(delta, -1)
     return out, delta
 
@@ -103,10 +97,7 @@ def _capture(body, inputs, params, hold):
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
-        rng.load_kernels()
-        disney.load_kernels()
-        if tracing.enabled():
-            tracing.load_marks()
+        _launch.warm()
         body(*static)
     torch.cuda.current_stream(device).wait_stream(side)
     if device not in _POOLS:

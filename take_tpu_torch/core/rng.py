@@ -16,9 +16,10 @@ what ran: each kernel launch, and each call of a plain version.
 """
 
 import ctypes
-import functools
 
 import torch
+
+from take_tpu_torch.geometry import _launch
 
 _MASK = 0xFFFFFFFF
 
@@ -31,11 +32,6 @@ _GOLDEN = 0x9E3779B9
 _SALT = 0xDEADBEEF  # the seed's word of a stream's lo half
 
 LAUNCHES = {"stream": 0, "uniform": 0, "bits": 0, "stream_plain": 0, "uniform_plain": 0, "bits_plain": 0}
-
-
-def reset_launches():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 def _mix(x):
@@ -84,30 +80,11 @@ def _uniform_plain(stream, counter, dtype=torch.float32):
     return (bits >> 8).to(dtype) * (1.0 / (1 << 24))
 
 
-@functools.cache
-def _lib():
-    from take_tpu_torch.geometry import _build
-
-    P, I, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
-    lib = _build.load("rng")
-    lib.tt_rng_stream.argtypes = [U32, P, I, P, I, I64, P, P, P]
-    for fn in (lib.tt_rng_uniform, lib.tt_rng_bits):
-        fn.argtypes = [P, P, P, U32, I64, P, P]
-    for fn in (lib.tt_rng_stream, lib.tt_rng_uniform, lib.tt_rng_bits):
-        fn.restype = I
-    return lib
-
-
 def _lanes(name, x):
     """An int32 or int64 tensor, contiguous."""
     if x.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"{name}: expected an int32 or int64 tensor, got {x.dtype}")
     return x.contiguous()
-
-
-def _raise_on(code, what):
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: {_lib().tt_error_string(code).decode()} ({code})")
 
 
 def _make_stream_kernel(seed, pixel_idx, sample_idx):
@@ -118,8 +95,9 @@ def _make_stream_kernel(seed, pixel_idx, sample_idx):
     hi, lo = (torch.empty(p.shape, dtype=torch.int64, device=dev) for _ in range(2))
     if p.numel():
         p64, s64 = int(p.dtype == torch.int64), int(s.dtype == torch.int64)
-        _raise_on(_lib().tt_rng_stream(seed & _MASK, p.data_ptr(), p64, s.data_ptr(), s64, p.numel(), hi.data_ptr(),
-                                       lo.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "take_rng_stream")
+        code = _lib().tt_rng_stream(seed & _MASK, p.data_ptr(), p64, s.data_ptr(), s64, p.numel(), hi.data_ptr(),
+                                    lo.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _launch.raise_on(_lib(), code, "take_rng_stream")
     return hi, lo
 
 
@@ -139,8 +117,9 @@ def _draw_kernel(stream, counter, out_dtype):
     out = torch.empty(hi.shape, dtype=out_dtype, device=dev)
     if out.numel():
         fn = _lib().tt_rng_uniform if out_dtype == torch.float32 else _lib().tt_rng_bits
-        _raise_on(fn(hi.data_ptr(), lo.data_ptr(), None if ctr is None else ctr.data_ptr(), c, out.numel(),
-                     out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "take_rng draw")
+        code = fn(hi.data_ptr(), lo.data_ptr(), None if ctr is None else ctr.data_ptr(), c, out.numel(),
+                  out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _launch.raise_on(_lib(), code, "take_rng draw")
     return out
 
 
@@ -188,16 +167,20 @@ def uniform(stream, counter, dtype=torch.float32):
     return out
 
 
-def load_kernels():
-    """Build and load csrc/rng.cu and launch each kernel once on the current
-    stream, uncounted, so that none is loaded while a graph is being
-    captured (no-op without a card)."""
-    if not torch.cuda.is_available():
-        return
+def _warm():
+    """Each kernel once, on one lane, uncounted."""
     one = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", torch.cuda.current_device()))
     stream = _make_stream_kernel(0, one, one)
     _draw_kernel(stream, 0, torch.float32)
     _draw_kernel(stream, 0, torch.int64)
+
+
+_P, _I, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+_lib = _launch.declare("rng", {
+    "tt_rng_stream": [_U32, _P, _I, _P, _I, _I64, _P, _P, _P],
+    "tt_rng_uniform": [_P, _P, _P, _U32, _I64, _P, _P],
+    "tt_rng_bits": [_P, _P, _P, _U32, _I64, _P, _P],
+}, launches=LAUNCHES, warm=_warm)
 
 
 # Logical dimension allocation per bounce (same layout as take_tpu).

@@ -5,7 +5,8 @@ shared library with a plain C interface under `build/take_tpu_torch/` at
 the root of the checkout. The file name carries a hash of the source, the
 shared headers (csrc/*.cuh) and the flags, so an edited source builds anew
 and an unchanged one loads the library already built. A failed build raises
-with nvcc's output. A source may add flags of its own (SOURCE_FLAGS).
+with nvcc's output. A source may add flags of its own, declared with it
+(geometry/_launch.py).
 """
 
 import ctypes
@@ -26,9 +27,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# disney.cu rounds every float operation as torch's separate kernels do: no
-# product is contracted into an FMA that the plain version rounds twice
-SOURCE_FLAGS = {"disney": ("--fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -43,14 +41,15 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def build(name: str) -> tuple[Path, float, str]:
-    """Compile csrc/<name>.cu unless a library of the same hash exists.
+def build(name: str, flags: tuple = ()) -> tuple[Path, float, str]:
+    """Compile csrc/<name>.cu, with `flags` after NVCC_FLAGS, unless a
+    library of the same hash exists.
 
     Returns (library path, seconds spent compiling, nvcc's output), where
     the output holds ptxas's register and shared-memory report.
     """
     src = CSRC / f"{name}.cu"
-    flags = (*NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()))
+    flags = (*NVCC_FLAGS, *flags)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
@@ -76,14 +75,7 @@ def build(name: str) -> tuple[Path, float, str]:
     return lib, seconds, output
 
 
-@functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu, with the C function every
-    source defines declared: `const char* tt_error_string(int)`. Span
-    take.kernels.load."""
+def load(name: str, flags: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu. Span take.kernels.load."""
     with tracing.span("take.kernels.load"):
-        path, _, _ = build(name)
-        lib = ctypes.CDLL(str(path))
-    lib.tt_error_string.argtypes = [ctypes.c_int]
-    lib.tt_error_string.restype = ctypes.c_char_p
-    return lib
+        return ctypes.CDLL(str(build(name, flags)[0]))

@@ -1,9 +1,20 @@
-"""What the kernel wrappers (brute.py, packet.py, cluster.py, sweep.py) share at run time.
+"""The port's kernel runtime: each CUDA source (csrc/<name>.cu) is declared
+here once, by the module that wraps it (`declare`), and no other module
+names it.
 
-`LAUNCHES` counts what ran: each wrapper adds one to its kernel's key where
-it launches the kernel, and each plain twin to its `_plain` key where it
-runs. Beside it, the wrappers' argument checks and the launch-error check.
+Counters. Each wrapper adds one to its kernel's key where it launches the
+kernel, and each plain twin to its `_plain` key where it runs. `LAUNCHES`
+counts the scene queries (brute.py, packet.py, cluster.py, sweep.py); the
+other wrappers count in dicts of their own. Every counter is registered by
+key in `COUNTED`, no key in two: `reset_launches()` zeroes them all, and the
+graph cache (_graph.py) takes a capture's counts out of them and adds them
+back at each replay. Beside them, the wrappers' argument checks and the
+launch-error check.
 """
+
+import collections
+import ctypes
+import functools
 
 import torch
 
@@ -15,11 +26,57 @@ LAUNCHES = {
     },
     "reference": 0,  # brute.reference, the K1/K2 reference kernel (no render path)
 }
+COUNTED = dict.fromkeys(LAUNCHES, LAUNCHES)  # launch key -> the counter that holds it
+Source = collections.namedtuple("Source", "lib flags warm")  # a declared source
+SOURCES = {}  # name -> Source, in the order declared
+
+
+def declare(name, functions, launches=None, flags: tuple = (), warm=None):
+    """Declare csrc/<name>.cu: `functions` maps each C function (each returns
+    an int) to its ctypes argument types, `launches` is the dict that counts
+    its launches (refused if another counter holds one of its keys), `flags`
+    its nvcc flags beyond _build.NVCC_FLAGS, and `warm()` launches each of
+    its kernels once on the current stream, counting nothing. Returns the
+    source's loader (build if needed, load, declare `functions` and
+    `tt_error_string`), cached; the wrapper binds it to its `_lib`, where a
+    test may put a stand-in library."""
+    if name in SOURCES:
+        raise ValueError(f"csrc/{name}.cu is declared twice")
+    if launches is not None:
+        taken = [key for key in launches if COUNTED.get(key, launches) is not launches]
+        if taken:
+            raise ValueError(f"csrc/{name}.cu: launch keys {taken} are counted elsewhere already")
+        COUNTED.update(dict.fromkeys(launches, launches))
+
+    @functools.cache
+    def lib():
+        from take_tpu_torch.geometry import _build
+
+        loaded = _build.load(name, flags)
+        for fn, argtypes in functions.items():
+            c_fn = getattr(loaded, fn)
+            c_fn.argtypes, c_fn.restype = argtypes, ctypes.c_int
+        loaded.tt_error_string.argtypes, loaded.tt_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+        return loaded
+
+    SOURCES[name] = Source(lib, flags, warm)
+    return lib
 
 
 def reset_launches():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    """Zero every registered counter."""
+    for key, counter in COUNTED.items():
+        counter[key] = 0
+
+
+def warm():
+    """Run every declared source's warm function on the current device and
+    stream, so that no kernel is loaded while a graph is being captured
+    (no-op without a card)."""
+    if torch.cuda.is_available():
+        for source in SOURCES.values():
+            if source.warm is not None:
+                source.warm()
 
 
 def check(name, x, dtype, shape, device):

@@ -17,11 +17,10 @@ ran.
 """
 
 import ctypes
-import functools
 
 import torch
 
-from take_tpu_torch.geometry import _build, _launch
+from take_tpu_torch.geometry import _launch
 from take_tpu_torch.scene.types import ATTR_DIM
 
 BIG = 3.4e38  # t of a miss
@@ -98,16 +97,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("brute")
-    lib.tt_brute_closest.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]
-    lib.tt_brute_closest.restype = _I
-    lib.tt_brute_occluded.argtypes = [_P, _I, _P, _P, _P, _P, _I, _P, _P]
-    lib.tt_brute_occluded.restype = _I
-    lib.tt_brute_reference.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P]
-    lib.tt_brute_reference.restype = _I
-    return lib
+_lib = _launch.declare("brute", {
+    "tt_brute_closest": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "tt_brute_occluded": [_P, _I, _P, _P, _P, _P, _I, _P, _P],
+    "tt_brute_reference": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+}, launches=_launch.LAUNCHES)
 
 
 def _check(rows, attr, n_tri, ro, rd, tmin, tmax):

@@ -24,11 +24,10 @@ walk's work per ray. `_launch.LAUNCHES` counts what ran.
 """
 
 import ctypes
-import functools
 
 import torch
 
-from take_tpu_torch.geometry import _build, _launch
+from take_tpu_torch.geometry import _launch
 from take_tpu_torch.geometry.bvh import CLUSTER_K, GROUP, SUP
 from take_tpu_torch.geometry.packet import BIG, affine_test, inv_dir, slab
 
@@ -155,14 +154,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("cluster")
-    lib.tt_cluster_closest.argtypes = [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
-    lib.tt_cluster_closest.restype = _I
-    lib.tt_cluster_occluded.argtypes = [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P]
-    lib.tt_cluster_occluded.restype = _I
-    return lib
+_lib = _launch.declare("cluster", {
+    "tt_cluster_closest": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "tt_cluster_occluded": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P],
+}, launches=_launch.LAUNCHES)
 
 
 def _check(sup_aabb, cl_aabb, tris, ro, rd, tmin, tmax):

@@ -24,12 +24,11 @@ twin pushes single nodes and sizes its own stack, `stack_bound(D)`.
 """
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from take_tpu_torch.geometry import _build, _launch
+from take_tpu_torch.geometry import _launch
 from take_tpu_torch.geometry.bvh import LEAF_SIZE, WIDTH
 from take_tpu_torch.scene.types import affine_rows
 
@@ -397,16 +396,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("traverse")
-    lib.tt_packet_closest.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
-    lib.tt_packet_closest.restype = _I
-    lib.tt_packet_occluded.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P]
-    lib.tt_packet_occluded.restype = _I
-    lib.tt_packet_stack_size.argtypes = []
-    lib.tt_packet_stack_size.restype = _I
-    return lib
+_lib = _launch.declare("traverse", {
+    "tt_packet_closest": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "tt_packet_occluded": [_P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "tt_packet_stack_size": [],
+}, launches=_launch.LAUNCHES)
 
 
 def _check(bvh, ro, rd, tmin, tmax):

@@ -23,11 +23,10 @@ ray. `_launch.LAUNCHES` counts what ran.
 """
 
 import ctypes
-import functools
 
 import torch
 
-from take_tpu_torch.geometry import _build, _launch
+from take_tpu_torch.geometry import _launch
 from take_tpu_torch.geometry.bvh import CLUSTER_K
 from take_tpu_torch.geometry.packet import BIG, affine_test, inv_dir, slab
 
@@ -240,14 +239,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.cache
-def _lib():
-    lib = _build.load("sweep")
-    lib.tt_sweep_closest.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
-    lib.tt_sweep_closest.restype = _I
-    lib.tt_sweep_occluded.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P]
-    lib.tt_sweep_occluded.restype = _I
-    return lib
+_lib = _launch.declare("sweep", {
+    "tt_sweep_closest": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "tt_sweep_occluded": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+}, launches=_launch.LAUNCHES)
 
 
 def _check(cl_aabb, tris, n_tri, ro, rd, tmin, tmax):

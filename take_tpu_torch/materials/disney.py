@@ -32,7 +32,6 @@ ran: each kernel launch, and each call of a plain version.
 """
 
 import ctypes
-import functools
 
 import torch
 
@@ -40,7 +39,7 @@ from take_tpu_torch.core.math import (
     C_INVPI, C_PI, C_TWOPI, constant, cross, dot, face_forward, normalize, reflect, to_world,
 )
 from take_tpu_torch.core.sampling import sample_hemisphere_cos
-from take_tpu_torch.geometry._launch import raise_on
+from take_tpu_torch.geometry._launch import declare, raise_on
 from take_tpu_torch.materials import bsdf
 from take_tpu_torch.scene.types import (
     MAT_DISNEY_BSDF,
@@ -61,11 +60,6 @@ TAGS = (
 _MIN_ALPHA = 1e-4
 
 LAUNCHES = {"sample": 0, "eval": 0, "pdf": 0, "sample_plain": 0, "eval_plain": 0, "pdf_plain": 0}
-
-
-def reset_launches():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
 
 
 def _luminance(c):
@@ -557,20 +551,6 @@ class _Inputs(ctypes.Structure):
     _fields_ = [(name, _Field) for name in ("tag", "front", *_VECTORS, *_SCALARS, *_UNIFORMS)] + [("n", ctypes.c_int64)]
 
 
-@functools.cache
-def _lib():
-    from take_tpu_torch.geometry import _build
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib = _build.load("disney")
-    lib.tt_disney_sample.argtypes = [P, I, P, P, P]
-    lib.tt_disney_eval.argtypes = [P, I, P, P]
-    lib.tt_disney_pdf.argtypes = [P, I, P, P]
-    for fn in (lib.tt_disney_sample, lib.tt_disney_eval, lib.tt_disney_pdf):
-        fn.restype = I
-    return lib
-
-
 def _field(name, x, n, dtype, width, device):
     """x as a field of Inputs, read in place: a `dtype` tensor on `device`
     of shape [n] or [n, width], the last axis of unit stride."""
@@ -696,18 +676,22 @@ def pdf(tag, sp, dir_in, dir_out):
     return _route("pdf", tag, sp, dir_in, dir_out)
 
 
-def load_kernels():
-    """Build and load csrc/disney.cu and launch each kernel once on the
-    current stream, on one lane of no Disney tag, uncounted, so that none is
-    loaded while a graph is being captured (no-op without a card)."""
-    if not torch.cuda.is_available():
-        return
-    from take_tpu_torch.materials.bsdf import ShadePoint
-
+def _warm():
+    """Each kernel once, on one lane of no Disney tag, uncounted."""
     dev = torch.device("cuda", torch.cuda.current_device())
     zero, v = torch.zeros(1, device=dev), torch.zeros((1, 3), device=dev)
-    sp = ShadePoint(*(v if name in _VECTORS else zero for name in ShadePoint._fields))._replace(
+    sp = bsdf.ShadePoint(*(v if name in _VECTORS else zero for name in bsdf.ShadePoint._fields))._replace(
         tag=torch.zeros(1, dtype=torch.int32, device=dev), front=torch.ones(1, dtype=torch.bool, device=dev))
     _launch("sample", MAT_DISNEY_BSDF, sp, v, zero, zero, zero, zero)
     _launch("eval", MAT_DISNEY_BSDF, sp, v, v)
     _launch("pdf", MAT_DISNEY_BSDF, sp, v, v)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# disney.cu rounds every float operation as torch's separate kernels do: no
+# product is contracted into an FMA that the plain version rounds twice
+_lib = declare("disney", {
+    "tt_disney_sample": [_P, _I, _P, _P, _P],
+    "tt_disney_eval": [_P, _I, _P, _P],
+    "tt_disney_pdf": [_P, _I, _P, _P],
+}, launches=LAUNCHES, flags=("--fmad=false",), warm=_warm)

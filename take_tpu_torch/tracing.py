@@ -41,6 +41,8 @@ import time
 
 import torch
 
+from take_tpu_torch.geometry._launch import declare, raise_on
+
 STAGES = ("forward", "backward")
 PHASES = ("camera", "shade", "light", "occlusion", "bsdf", "intersect", "hit", "step", "loss", "vjp", "end",
           "disney", "envmap")
@@ -202,28 +204,17 @@ def phase(name: str):
     return _phase_of(name) if _ON[0] else _NULL
 
 
-@functools.cache
-def _lib():
-    from take_tpu_torch.geometry import _build
-
-    lib = _build.load("mark")
-    lib.tt_mark.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.tt_mark.restype = ctypes.c_int
-    return lib
-
-
 def _launch(s, p):
-    code = _lib().tt_mark(s, p, torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"mark kernel launch failed: {_lib().tt_error_string(code).decode()} ({code})")
+    raise_on(_lib(), _lib().tt_mark(s, p, torch.cuda.current_stream().cuda_stream), "mark kernel")
 
 
-def load_marks():
-    """Build and load the mark kernels and launch each once on the current
-    stream, so that none is loaded while a graph is being captured (no-op
-    without a card)."""
-    if not torch.cuda.is_available():
-        return
-    for s in range(len(STAGES)):
-        for p in range(len(PHASES)):
-            _launch(s, p)
+def _warm():
+    """Each mark kernel once, when tracing is on (a graph captured with it
+    off holds no mark)."""
+    if _ON[0]:
+        for s in range(len(STAGES)):
+            for p in range(len(PHASES)):
+                _launch(s, p)
+
+
+_lib = declare("mark", {"tt_mark": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}, warm=_warm)

@@ -1187,7 +1187,7 @@ def test_rng_kernels_render_pass_equals_plain(card):
     for bit."""
     render, one = _cbox_pass(2)
     render.clear_cache()
-    rng.reset_launches()
+    _launch.reset_launches()
     got = one()
     assert rng.LAUNCHES["uniform"] > 0 and rng.LAUNCHES["uniform_plain"] == 0
     render.clear_cache()
@@ -1205,7 +1205,7 @@ def test_rng_launches_of_a_captured_cbox_pass(card):
     rng.LAUNCHES counts what ran: the warm-up and each replay."""
     render, one = _cbox_pass(1, res=64)
     render.clear_cache()
-    rng.reset_launches()
+    _launch.reset_launches()
     one()
     per_pass = {**dict.fromkeys(rng.LAUNCHES, 0), "stream": 1, "uniform": 2 + 7 * 5}
     assert {k: _graph.captured()[-1].launches.get(k, 0) for k in rng.LAUNCHES} == per_pass

@@ -3,8 +3,8 @@
 From the CPU: the route a CPU tensor takes, the source's constants and
 input layout against the package's, the wrappers' plumbing with a stand-in
 library (fields read in place through pointers and row strides, refusals),
-the autograd Function's backward against plain autograd, and the graph's
-launch bookkeeping. On the card (marked `cuda`, skipped without one): each
+and the autograd Function's backward against plain autograd (the graph's
+launch bookkeeping is tests/test_torch_kernel_runtime.py's). On the card (marked `cuda`, skipped without one): each
 tag's sample, eval and pdf against the plain version at 2^20 lanes, the
 Function's gradients, and an ibl pass graph's launches. This file imports
 neither JAX nor take_tpu, so its card part runs where only PyTorch is:
@@ -23,8 +23,7 @@ import torch
 
 from chip_smoke import (DISNEY_BIT_SHARE, DISNEY_COLUMNS, DISNEY_ULP_LANES, DISNEY_ZERO_FLIPS, IBL_CHROME,
                         IBL_COMPOSITE, agreement, disney_dir_out, disney_lanes)
-from take_tpu_torch import _graph
-from take_tpu_torch.geometry import _build
+from take_tpu_torch.geometry import _build, _launch
 from take_tpu_torch.materials import bsdf, disney
 from take_tpu_torch.scene import types as ST
 
@@ -45,7 +44,7 @@ def _on_cpu(entry, tag, sp, dir_in, *rest):
 
 
 def test_cpu_lobes_take_the_plain_route():
-    disney.reset_launches()
+    _launch.reset_launches()
     for tag in TAG_NAMES:
         sp, dir_in, *u = disney_lanes(tag, 256, 1, "cpu")
         d, p = disney.sample(tag, sp, dir_in, *u)
@@ -74,7 +73,7 @@ def test_kernel_constants_and_layout_equal_the_package():
 
 
 def test_source_builds_without_contraction_or_fast_math():
-    flags = (*_build.NVCC_FLAGS, *_build.SOURCE_FLAGS["disney"])
+    flags = (*_build.NVCC_FLAGS, *_launch.SOURCES["disney"].flags)
     assert "--fmad=false" in flags
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     assert "--fmad=false" not in _build.NVCC_FLAGS  # the other sources keep their flags (and their hashes)
@@ -186,35 +185,6 @@ def test_function_backward_equals_plain_autograd(entry, tag):
             torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12, equal_nan=True)
 
 
-def test_graph_counters_hold_disney_launches():
-    """disney.LAUNCHES is one of the counters a capture keeps (no key in two
-    of them): a capture's launches are taken back out of it, and each replay
-    adds them again."""
-    assert any(c is disney.LAUNCHES for c in _graph.COUNTERS)
-    keys = [k for c in _graph.COUNTERS for k in c]
-    assert len(keys) == len(set(keys))
-    disney.reset_launches()
-
-    def capture():
-        disney.LAUNCHES["sample"] += 7
-        disney.LAUNCHES["eval"] += 14
-        disney.LAUNCHES["pdf"] += 7
-        return "graph"
-
-    out, delta = _graph.uncounted(capture)
-    assert out == "graph" and delta == {"sample": 7, "eval": 14, "pdf": 7}
-    assert not any(disney.LAUNCHES.values())
-    _graph.add_launches(delta, times=3)
-    assert disney.LAUNCHES == {"sample": 21, "eval": 42, "pdf": 21, "sample_plain": 0, "eval_plain": 0,
-                               "pdf_plain": 0}
-
-
-def test_load_kernels_is_a_no_op_without_a_card():
-    with mock.patch.object(torch.cuda, "is_available", lambda: False), \
-            mock.patch.object(disney, "_lib", side_effect=AssertionError("loaded")):
-        disney.load_kernels()
-
-
 # -- On the card --
 
 
@@ -226,7 +196,7 @@ def card():
 
 def kernel_and_plain(entry, tag, sp, dir_in, u, dir_out):
     rest = u if entry == "sample" else [dir_out]
-    disney.reset_launches()
+    _launch.reset_launches()
     got = disney._route(entry, tag, sp, dir_in, *rest)
     assert disney.LAUNCHES[entry] == 1 and disney.LAUNCHES[f"{entry}_plain"] == 0
     return got, disney._PLAIN[entry](tag, sp, dir_in, *rest)
@@ -282,7 +252,7 @@ def test_disney_function_gradients_equal_plain_on_card(card, entry):
         loss = sum(torch.nan_to_num(o, 0.0, 0.0, 0.0).sum() for o in out)
         return torch.autograd.grad(loss, [refl, rough, dir_in], allow_unused=True)
 
-    disney.reset_launches()
+    _launch.reset_launches()
     got = run(lambda sp, dir_in, rest: disney._route(entry, tag, sp, dir_in, *rest))
     assert disney.LAUNCHES[entry] == 1
     want = run(lambda sp, dir_in, rest: disney._PLAIN[entry](tag, sp, dir_in, *rest))
@@ -308,7 +278,7 @@ def test_ibl_pass_graph_launches_the_disney_kernels(card):
     scene = with_res(parse_scene_file(os.path.join(ROOT, "scenes", "ibl", "ibl.xml"), device="cuda"), 64)
     opts = RenderOptions(spp=1, max_depth=6, seed=11)
     render.clear_cache()
-    disney.reset_launches()
+    _launch.reset_launches()
     img = render.render_image(scene, opts)
     first = dict(disney.LAUNCHES)
     img2 = render.render_image(scene, opts)

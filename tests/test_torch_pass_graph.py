@@ -417,32 +417,6 @@ def test_graph_path_only_for_captured_integrators_without_autograd(fake_cuda):
         render.render_pass(scene, RenderOptions(integrator="nope"), pix, 0, 4, 1)
 
 
-def test_launch_bookkeeping():
-    """What a capture counts is taken back out of LAUNCHES (also when it
-    raises), and each replay adds it back."""
-    _launch.reset_launches()
-    _launch.LAUNCHES["closest"] = 5
-
-    def capture():
-        _launch.LAUNCHES["closest"] += 3
-        _launch.LAUNCHES["anyhit"] += 2
-        return "graph"
-
-    assert _graph.uncounted(capture) == ("graph", {"closest": 3, "anyhit": 2})
-    assert _launch.LAUNCHES["closest"] == 5 and _launch.LAUNCHES["anyhit"] == 0
-
-    def failing():
-        _launch.LAUNCHES["packet_closest"] += 1
-        raise RuntimeError("capture failed")
-
-    with pytest.raises(RuntimeError, match="capture failed"):
-        _graph.uncounted(failing)
-    assert _launch.LAUNCHES["packet_closest"] == 0
-    for _ in range(4):
-        _graph.add_launches({"closest": 3, "anyhit": 2})
-    assert {k: v for k, v in _launch.LAUNCHES.items() if v} == {"closest": 17, "anyhit": 8}
-
-
 def test_cpu_render_never_touches_cuda(monkeypatch):
     """A render on the CPU runs every pass op by op and calls none of
     torch.cuda's graph or stream entry points."""

@@ -1,7 +1,7 @@
 """The counter RNG's kernels (take_tpu_torch/csrc/rng.cu) from the CPU: the
 route a CPU tensor takes, the source's constants, a uint32 walk of the
 kernels' arithmetic against the plain version, the wrapper's argument
-handling, the launch bookkeeping of a graph, and the per-lane counter form
+handling, and the per-lane counter form
 against take_tpu's. The kernels themselves run in tests/test_torch_cuda.py."""
 
 import os
@@ -13,7 +13,6 @@ import pytest
 import torch
 
 from take_tpu.core import rng as jrng
-from take_tpu_torch import _graph
 from take_tpu_torch.core import rng
 from take_tpu_torch.geometry import _launch
 
@@ -28,7 +27,7 @@ def source_constants():
 
 
 def test_cpu_draws_take_the_plain_route():
-    rng.reset_launches()
+    _launch.reset_launches()
     pix = torch.arange(64, dtype=torch.int32)
     st = rng.make_stream(5, pix, torch.zeros_like(pix))
     rng.uniform(st, rng.bounce_counter(2, rng.DIM_BSDF_U1))
@@ -135,28 +134,6 @@ def test_kernel_wrappers_broadcast_and_launch():
     assert out[2] == "False"
 
 
-def test_graph_bookkeeping_counts_draws():
-    """A capture's draws are taken back out of rng.LAUNCHES, and each replay
-    adds them again, beside the scene-query kernels' counts."""
-    rng.reset_launches()
-    _launch.reset_launches()
-
-    def capture():
-        rng.LAUNCHES["stream"] += 1
-        rng.LAUNCHES["uniform"] += 37
-        _launch.LAUNCHES["closest"] += 6
-        return "graph"
-
-    out, delta = _graph.uncounted(capture)
-    assert out == "graph" and delta == {"stream": 1, "uniform": 37, "closest": 6}
-    assert not any(rng.LAUNCHES.values()) and not any(_launch.LAUNCHES.values())
-    for _ in range(3):
-        _graph.add_launches(delta)
-    assert {k: v for k, v in rng.LAUNCHES.items() if v} == {"stream": 3, "uniform": 111}
-    assert {k: v for k, v in _launch.LAUNCHES.items() if v} == {"closest": 18}
-    assert not set(rng.LAUNCHES) & set(_launch.LAUNCHES)
-
-
 def test_cbox_pass_draws_two_plus_seven_a_bounce():
     """A cbox pass at d4 makes one stream and 2 + 7 x 5 draws: the camera's
     jitter, then 3 light and 4 BSDF uniforms on each of 5 trips."""
@@ -168,7 +145,7 @@ def test_cbox_pass_draws_two_plus_seven_a_bounce():
 
     scene = with_res(parse_scene_file(CBOX, device="cpu"), 8)
     pix = torch.arange(64, dtype=torch.int32)
-    rng.reset_launches()
+    _launch.reset_launches()
     with torch.inference_mode():
         _pass(scene, RenderOptions(spp=1, max_depth=4), pix, torch.zeros((), dtype=torch.int32), 8, 1)
     assert {k: v for k, v in rng.LAUNCHES.items() if v} == {"stream_plain": 1, "uniform_plain": 2 + 7 * 5}

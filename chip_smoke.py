@@ -17,13 +17,16 @@ hold the two modes against each other:
      source declared with the kernel runtime (geometry/_launch.py), all
      started together, and prints each kernel's registers, shared memory,
      stack frame and spills (every kernel, K1-K6, the RNG's, the Disney
-     lobes' and the marks, must have no stack frame and no spills);
-  rng, disney: the counter RNG's kernels (csrc/rng.cu) and the Disney
+     lobes', the light phase's and the marks, must have no stack frame and
+     no spills);
+  rng, disney, light: the counter RNG's kernels (csrc/rng.cu), the Disney
      lobes' (csrc/disney.cu: sample, eval and pdf at ibl's chrome and
-     composite) on 2^20 lanes against their plain versions (the RNG bit for
-     bit; the lobes bit for bit on all but a handful of lanes), each timed
-     from a captured graph beside its bytes bound and the plain version's
-     time;
+     composite) and the light phase's (csrc/light.cu: sample, nee and
+     arrival on every kind of light slot) on 2^20 lanes against their plain
+     versions (the RNG bit for bit; the lobes and the light phase bit for
+     bit on all but a handful of lanes), each timed from a captured graph
+     beside its bytes bound and the plain version's time; every render on
+     the card below must run the light phase through its kernels alone;
   cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
   brute-force path, K1/K2):
   3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
@@ -579,6 +582,179 @@ def disney_cell(torch, dev):
     return out
 
 
+# the light phase's kernels (csrc/light.cu): lanes a call (a pass's paths),
+# input sets the timed calls cycle through (each ~100 MB, more than the 50
+# MB L2), the slot kinds of light_lanes, and the kernels against the plain
+# version: lanes bit-equal in every output at least, as DISNEY_BIT_SHARE
+LIGHT_LANES, LIGHT_SETS = 1 << 20, 2
+LIGHT_CASES = ("triangle", "sphere", "point", "env", "mixed")
+LIGHT_BIT_SHARE = 1 - 1e-5
+# bytes a lane needs at cbox's kind ("triangle": area lights, no environment
+# map), each input read once and each output written once: sample reads 3
+# uniforms and the hit point (24) and writes light_dir, tmax, back, row,
+# is_env, is_area, lit, lp, inv_d2 (32); nee reads row, the three flags, lp,
+# FG, bp, occluded, spec, active (30) and writes C1 (12); arrival reads both
+# vertices, dir_out, FG, bpdf, the four flags, light_id, geo_n, light_geom
+# and emit (88; the flat background is one row, read once) and writes three
+# [N, 3] terms (36)
+LIGHT_BYTES = {"sample": 24 + 32, "nee": 30 + 12, "arrival": 88 + 36}
+
+
+def light_lanes(case, n, seed, device):
+    """(scene, sample's arguments, nee's vertex arguments, arrival's
+    arguments) of integrator/light.py for n lanes drawn with numpy. The scene
+    holds the light table and meta of `case`: "triangle" (two triangle
+    lights, one with corner normals that flip its normal), "sphere" (a
+    sphere light), "point", "env" (the environment map alone, as ibl) or
+    "mixed" (all four and the environment map). The lanes: hit points
+    around the lights, on a triangle light's sampled corner (d = 0 at
+    u1 = 0), at the point light (d = 0), on the sphere, in the triangle
+    light's plane (grazing) and behind it; 24-bit uniforms; FG, bp (0 on a
+    tenth, 1e18 on some), the shadow answer, specular and dead lanes; the
+    arrival's hits on emitters, misses, back faces, bpdf 0 and above the
+    1e18 clamp."""
+    import types
+
+    import torch
+
+    from take_tpu_torch.scene import types as ST
+
+    g = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    unit = lambda k: _unit(g.normal(size=(k, 3)))
+
+    def row(tag, kind, **cols):
+        r = np.zeros(ST.LATTR_DIM, np.float32)
+        r[ST.LATTR_TAG], r[ST.LATTR_KIND] = tag, kind
+        r[ST.LATTR_INTENSITY:ST.LATTR_INTENSITY + 3] = g.uniform(0.5, 20.0, 3)
+        for name, value in cols.items():
+            col = getattr(ST, f"LATTR_{name.upper()}")
+            r[col:col + np.size(value)] = value
+        return r
+
+    quad = np.array([[-0.25, 1.0, -0.25], [0.25, 1.0, -0.25], [0.25, 1.0, 0.25]], np.float32)  # faces down
+    tilt = np.array([[-0.8, 0.2, -0.5], [-0.5, 0.9, -0.6], [-0.7, 0.4, 0.1]], np.float32)
+    tri = lambda v, **k: row(ST.LIGHT_AREA, ST.SHAPE_TRI, v0=v[0], e1=v[1] - v[0], e2=v[2] - v[0],
+                             inv_area=2.0 / np.linalg.norm(np.cross(v[1] - v[0], v[2] - v[0])), **k)
+    center, radius, point = np.array([0.6, 0.5, 0.0], np.float32), 0.15, np.array([-0.6, 0.7, 0.2], np.float32)
+    lights = {
+        "tri": tri(quad),
+        "tilt": tri(tilt, n0=(0, 1, 0), n1=(0.2, 0.9, 0.1), n2=(0, 1, 0)),  # corner normals against the face's
+        "sphere": row(ST.LIGHT_AREA, ST.SHAPE_SPHERE, pos=center, radius=radius,
+                      inv_area=1.0 / (4 * np.pi * radius * radius)),
+        "point": row(ST.LIGHT_POINT, ST.SHAPE_TRI, pos=point),
+    }
+    names, has_env = {"triangle": (("tri", "tilt"), False), "sphere": (("sphere",), False),
+                      "point": (("point",), False), "env": ((), True),
+                      "mixed": (("tri", "tilt", "sphere", "point"), True)}[case]
+    table = np.zeros((8, ST.LATTR_DIM), np.float32)
+    for k, name in enumerate(names):
+        table[k] = lights[name]
+    meta = types.SimpleNamespace(n_lights=len(names), n_sph=int("sphere" in names), has_envmap=has_env,
+                                 has_area_lights=any(nm != "point" for nm in names),
+                                 has_point_lights="point" in names)
+    scene = types.SimpleNamespace(meta=meta, lights=types.SimpleNamespace(attr=f32(table)))
+
+    u = [np.floor(g.random(n) * (1 << 24)) / (1 << 24) for _ in range(3)]
+    u[0][g.random(n) < 0.01], u[1][g.random(n) < 0.01] = 0.0, 1.0 - 2.0 ** -24
+    pos = g.uniform(-1.0, 1.0, (n, 3))
+    kind = g.integers(0, 8, n)  # 0-2 the general lanes; then the special ones
+    corner = kind == 3  # on the quad's corner v0 + e1, sampled at u1 = 0
+    pos[corner] = (quad[0] + np.float32(1.0) * (quad[1] - quad[0])).astype(np.float32)
+    u[1][corner] = 0.0
+    pos[kind == 4] = point  # at the point light
+    on_sph = kind == 5
+    pos[on_sph] = center + radius * unit(int(on_sph.sum())) * g.uniform(1.0, 1.0 + 1e-5, (int(on_sph.sum()), 1))
+    grazing = kind == 6
+    pos[grazing, 1] = 1.0 + g.uniform(-1e-6, 1e-6, int(grazing.sum()))
+    behind = kind == 7
+    pos[behind, 1] = g.uniform(1.0, 1.5, int(behind.sum()))
+    env_pdf = g.uniform(0.0, 5.0, n) * (g.random(n) > 0.1)
+    env_pdf[g.random(n) < 0.01] = 1e20
+    sample = [f32(x) for x in u] + [f32(pos), f32(unit(n)), f32(unit(n)) if has_env else None]
+
+    bp = g.uniform(0.0, 3.0, n) * (g.random(n) > 0.1)
+    bp[g.random(n) < 0.01] = 1e18
+    fg = g.uniform(0.0, 1.0, (n, 3)) * (g.random((n, 1)) > 0.05)
+    flag = lambda p: torch.from_numpy(g.random(n) < p).to(device)
+    env = (f32(g.uniform(0.0, 4.0, (n, 3))), f32(env_pdf)) if has_env else (None, None)
+    nee = (f32(fg), f32(bp), flag(0.3), flag(0.1), flag(0.9), *env)
+
+    prev = g.uniform(-1.0, 1.0, (n, 3))
+    dir_out = unit(n)
+    hit_pos = prev + dir_out * g.uniform(0.0, 2.0, (n, 1))
+    same = g.random(n) < 0.05  # d = 0
+    hit_pos[same] = prev[same]
+    geo_n = unit(n)
+    side = g.random(n) < 0.05  # grazing: the normal in the plane of dir_out
+    geo_n[side] = _unit(np.cross(dir_out[side], unit(int(side.sum()))))
+    emitter = g.random(n) < 0.4 if names else np.zeros(n, bool)
+    light_id = np.where(emitter, g.integers(0, max(len(names), 1), n), -1)
+    sph = emitter & (g.random(n) < 0.5) & ("sphere" in names)
+    light_geom = np.where(emitter, np.where(sph, -radius, g.uniform(0.5, 8.0, n)), 0.0)
+    bpdf = g.uniform(0.0, 3.0, n) * (g.random(n) > 0.1)
+    bpdf[g.random(n) < 0.02] = 1e25
+    background = f32(g.uniform(0.0, 2.0, (n, 3))) if has_env else f32(g.uniform(0.0, 2.0, 3))
+    arrival = (f32(prev), f32(dir_out), f32(g.uniform(0.0, 1.0, (n, 3))), f32(bpdf), flag(0.1), flag(0.9),
+               flag(0.9), flag(0.7), torch.from_numpy(light_id.astype(np.int32)).to(device), f32(hit_pos),
+               f32(geo_n), f32(light_geom), f32(g.uniform(0.0, 10.0, (n, 3))),
+               torch.broadcast_tensors(background, torch.empty((n, 3), device=device))[0],
+               f32(g.uniform(0.0, 5.0, n) * (g.random(n) > 0.1)) if has_env else None)
+    return scene, sample, nee, arrival
+
+
+def light_args(entry, lanes):
+    """The tensor arguments of light.py's `entry` (as its _launch and plain
+    version take them) for lanes of light_lanes: nee's light fields are the
+    plain sample's of the same lanes."""
+    from take_tpu_torch.integrator import light
+
+    scene, sample, nee, arrival = lanes
+    if entry == "sample":
+        return tuple(sample)
+    if entry == "arrival":
+        return arrival
+    ls = light._sample_plain(scene, *sample)
+    return (scene.lights.attr, *ls[3:], *nee)
+
+
+def light_cell(torch, dev):
+    """The light phase's kernels (csrc/light.cu) on LIGHT_LANES lanes of each
+    of LIGHT_CASES: each output held against the plain version (bit for bit
+    on at least LIGHT_BIT_SHARE of the lanes); then each kernel timed from
+    a captured graph cycling through LIGHT_SETS input sets at cbox's kind
+    (graph_ms: the inputs come from device memory) beside its bytes bound
+    and the plain version's time; returns {name: times}."""
+    from take_tpu_torch.integrator import light
+
+    n, out, rows, agree = LIGHT_LANES, {}, [], []
+    for case in LIGHT_CASES:
+        lanes = light_lanes(case, n, 70 + len(case), dev)
+        for entry in ("sample", "nee", "arrival"):
+            args = light_args(entry, lanes)
+            got, want = light._launch(entry, lanes[0], *args), light._PLAIN[entry](lanes[0], *args)
+            want = want if isinstance(want, tuple) else (want,)
+            for k, (a, b) in enumerate(zip(got, want)):
+                same, most, _ = agreement(a.float(), b.float())
+                if a.shape != b.shape or a.dtype != b.dtype or same < LIGHT_BIT_SHARE:
+                    raise RuntimeError(f"light {case} {entry} output {k}: the kernel differs from the plain version "
+                                       f"(bit-equal {same:.6f}, largest {most} ulps)")
+                agree.append(same)
+    sets = [light_lanes("triangle", n, 90 + k, dev) for k in range(LIGHT_SETS)]
+    for entry in ("sample", "nee", "arrival"):
+        args = [light_args(entry, lanes) for lanes in sets]
+        ms = graph_ms(torch, lambda k: light._launch(entry, sets[k % LIGHT_SETS][0], *args[k % LIGHT_SETS]))
+        plain_ms = graph_ms(torch, lambda k: light._PLAIN[entry](sets[k % LIGHT_SETS][0], *args[k % LIGHT_SETS]),
+                            calls=4, replays=3)
+        bound_ms, _ = bound(LIGHT_BYTES[entry] * n, 0)
+        out[entry] = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms}
+        rows.append(f"{entry} {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} us, {100 * bound_ms / ms:.1f}%), "
+                    f"plain {plain_ms * 1e3:.1f} us ({plain_ms / ms:.1f}x)")
+    phase("light", f"{n} lanes of {', '.join(LIGHT_CASES)}: every output bit-equal on at least "
+          f"{100 * min(agree):.4f}% of lanes; times from a graph at cbox's kind: " + "; ".join(rows))
+    return out
+
+
 def bvh_bound(torch, packet, bvh, rays, any_hit, seed=0):
     """The bound of one BVH query (K3, K4 or K6 answer the same one): the
     twin's slab and triangle tests, counted on WORK_SAMPLE random rays of
@@ -1050,12 +1226,16 @@ def kernels_only(launches, want, what):
 
 def render_counted(torch, _launch, render_image, scene, options, want, what):
     """Render with every launch count set to 0 just before; the counts read
-    just after must be > 0 for the kernels in `want` and 0 for all others."""
+    just after must be > 0 for the kernels in `want` and 0 for all other
+    scene queries, and the light phase must have run its kernels alone."""
+    from take_tpu_torch.integrator import light
+
     torch.cuda.synchronize()
     _launch.reset_launches()
     img = render_image(scene, options)
     torch.cuda.synchronize()
     launches = kernels_only(dict(_launch.LAUNCHES), want, what)
+    kernels_only(light.LAUNCHES, ("light_sample", "light_nee", "light_arrival"), f"{what}'s light phase")
     if not np.isfinite(img).all():
         raise RuntimeError(f"{what}: the image is not finite")
     return img, launches
@@ -2715,6 +2895,7 @@ def main():
     dev = torch.device(DEVICE)
     rng_times = rng_cell(torch, dev)
     disney_times = disney_cell(torch, dev)
+    light_times = light_cell(torch, dev)
     out_dir = ROOT / "build" / "take_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -2755,7 +2936,7 @@ def main():
           f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}; parallel {launches_par}; "
           f"bench {launches_bench}; room grad {launches_room_grad}; inverse step {launches_inverse}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "rng": rng_times, "disney": disney_times}))
+    print(json.dumps({"kernels": kernels, "rng": rng_times, "disney": disney_times, "light": light_times}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -18,7 +18,7 @@
   X(stage, camera) X(stage, shade) X(stage, light) X(stage, occlusion)        \
   X(stage, bsdf) X(stage, intersect) X(stage, hit) X(stage, step)             \
   X(stage, loss) X(stage, vjp) X(stage, end) X(stage, disney)                 \
-  X(stage, envmap)
+  X(stage, envmap) X(stage, glossy)
 
 #define TT_DEFINE(stage, phase) \
   extern "C" __global__ void take_mark_##stage##_##phase() {}

@@ -12,7 +12,8 @@ microfacet and disney-diffuse; the other Disney tags (metal, glass,
 clearcoat, sheen, disneybsdf) dispatch to disney.py, as the JAX package's
 disney_mode="full" does (its other modes, the reference's stubs, are not
 ported). With tracing on, the Disney lobes' work in each dispatch is phase
-`disney` (tracing.phase), inside whichever phase called the dispatch.
+`disney` and the Phong, Blinn-Phong and Blinn-Phong microfacet lobes' is
+phase `glossy` (tracing.phase), inside whichever phase called the dispatch.
 """
 
 from typing import NamedTuple
@@ -335,9 +336,11 @@ def bsdf_sample(scene: Scene, sp: ShadePoint, dir_in, u_lobe, u1, u2, u3=None):
         elif tag == MAT_PLASTIC:
             d, p = _plastic_sample(sp, dir_in, u_lobe, u1, u2)
         elif tag == MAT_PHONG:
-            d, p = _phong_sample(sp, dir_in, u1, u2)
+            with tracing.phase("glossy"):
+                d, p = _phong_sample(sp, dir_in, u1, u2)
         elif tag in (MAT_BLINN_PHONG, MAT_BLINN_PHONG_MICROFACET):
-            d, p = _blinn_phong_sample(sp, dir_in, u1, u2)
+            with tracing.phase("glossy"):
+                d, p = _blinn_phong_sample(sp, dir_in, u1, u2)
         elif tag in disney.TAGS:
             with tracing.phase("disney"):
                 d, p = disney.sample(tag, sp, dir_in, u_lobe, u1, u2, u3)
@@ -364,11 +367,14 @@ def bsdf_eval(scene: Scene, sp: ShadePoint, dir_in, dir_out, sample_pdf=None):
         elif tag == MAT_PLASTIC:
             v = _plastic_eval(sp, dir_in, dir_out, sample_pdf)
         elif tag == MAT_PHONG:
-            v = _phong_eval(sp, dir_in, dir_out)
+            with tracing.phase("glossy"):
+                v = _phong_eval(sp, dir_in, dir_out)
         elif tag == MAT_BLINN_PHONG:
-            v = _blinn_phong_eval(sp, dir_in, dir_out)
+            with tracing.phase("glossy"):
+                v = _blinn_phong_eval(sp, dir_in, dir_out)
         elif tag == MAT_BLINN_PHONG_MICROFACET:
-            v = _bp_micro_eval(sp, dir_in, dir_out)
+            with tracing.phase("glossy"):
+                v = _bp_micro_eval(sp, dir_in, dir_out)
         elif tag == MAT_DISNEY_DIFFUSE:
             with tracing.phase("disney"):
                 v = _disney_diffuse_eval(sp, dir_in, dir_out)
@@ -390,9 +396,11 @@ def bsdf_pdf(scene: Scene, sp: ShadePoint, dir_in, dir_out):
         elif tag == MAT_PLASTIC:
             p = _plastic_pdf(sp, dir_in, dir_out)
         elif tag == MAT_PHONG:
-            p = _phong_pdf(sp, dir_in, dir_out)
+            with tracing.phase("glossy"):
+                p = _phong_pdf(sp, dir_in, dir_out)
         elif tag in (MAT_BLINN_PHONG, MAT_BLINN_PHONG_MICROFACET):
-            p = _blinn_phong_pdf(sp, dir_in, dir_out)
+            with tracing.phase("glossy"):
+                p = _blinn_phong_pdf(sp, dir_in, dir_out)
         elif tag in disney.TAGS:
             with tracing.phase("disney"):
                 p = disney.pdf(tag, sp, dir_in, dir_out)

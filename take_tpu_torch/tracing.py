@@ -24,8 +24,10 @@ the CPU, in passes run op by op) a mark launches nothing. On, every mark is
 recorded as (stage, phase) in the order the body emits it (`marks()`).
 `with phase(p):` marks p for a block inside another phase and then marks
 the interrupted phase again, so that the other phases keep their meaning:
-`disney` (the Disney lobes inside the BSDF dispatch) and `envmap` (the
-environment map's sampling, lookups and pdf) are such phases.
+`disney` (the Disney lobes inside the BSDF dispatch), `envmap` (the
+environment map's sampling, lookups and pdf) and `glossy` (the Phong,
+Blinn-Phong and Blinn-Phong microfacet lobes inside the BSDF dispatch) are
+such phases.
 A graph captured with tracing on holds mark nodes and one captured with it
 off holds none, so `enabled()` is part of every graph key
 (render.pass_key, grad.grad_key).
@@ -45,7 +47,7 @@ from take_tpu_torch.geometry._launch import declare, raise_on
 
 STAGES = ("forward", "backward")
 PHASES = ("camera", "shade", "light", "occlusion", "bsdf", "intersect", "hit", "step", "loss", "vjp", "end",
-          "disney", "envmap")
+          "disney", "envmap", "glossy")
 MAX_MARKS = 1 << 16  # marks kept for marks(), the latest
 
 _ON = [os.environ.get("TAKE_TPU_TRACE", "") == "1"]

@@ -1079,6 +1079,51 @@ def test_marked_ibl_pass_graph_shows_disney_and_envmap(card):
 
 
 @pytest.mark.cuda
+def test_marked_mis_pass_graph_shows_glossy(card):
+    """With tracing on, a replayed mis pass graph runs the `glossy` marks,
+    each followed by the phase it interrupted, and otherwise the kernels of
+    the unmarked graph, in the same order; its image equals the unmarked
+    graph's bit for bit; with tracing off the graph holds no mark."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from take_tpu_torch import tracing
+    from take_tpu_torch.scene.types import RenderOptions
+
+    render = importlib.import_module("take_tpu_torch.render")
+    scene = with_res(parse_scene_file(os.path.join(SCENES, "mis", "mis.xml"), device="cuda"), 64)
+    opts = RenderOptions(spp=1, max_depth=6, seed=5)
+
+    def replayed():
+        render.render_image(scene, opts)  # the key's capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            img = render.render_image(scene, opts)
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        return img, [n for _, n in kernels]
+
+    render.clear_cache()
+    tracing.disable()
+    plain, off = replayed()
+    tracing.reset()
+    tracing.enable()
+    try:
+        marked, on = replayed()
+    finally:
+        tracing.disable()
+        tracing.reset()
+        render.clear_cache()
+    assert not any(n.startswith("take_mark_") for n in off) and np.array_equal(marked, plain)
+    assert [n for n in on if not n.startswith("take_mark_")] == off
+    phases = [n[len("take_mark_forward_"):] for n in on if n.startswith("take_mark_")]
+    nested = [i for i, p in enumerate(phases) if p == "glossy"]
+    assert len(nested) == 4 * 7 and all(phases[i + 1] == phases[i - 1] != "glossy" for i in nested)
+
+
+@pytest.mark.cuda
 def test_marked_gradient_graph_equals_unmarked(card):
     """A replay gradient through a marked graph gives the unmarked graph's
     loss bit for bit and its gradient within the run-to-run spread of the

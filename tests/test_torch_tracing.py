@@ -2,7 +2,9 @@
 no result; its span table; the phase marks a pass body emits, forward and
 in the replay backward; the graph keys that hold the tracing flag; and the
 mark kernels' order in csrc/mark.cu; the `disney` and `envmap` phases that
-interrupt another phase and resume it, on ibl and nowhere else."""
+interrupt another phase and resume it, on ibl and nowhere else; the
+`glossy` phase on mis, and a mis pass's operations, the same with tracing
+off as on."""
 
 import dataclasses
 import importlib
@@ -201,3 +203,52 @@ def test_phase_resumes_what_it_interrupted():
     assert tracing.marks() == [("forward", "envmap"), ("forward", "end"), ("forward", "light"),
                                ("forward", "envmap"), ("forward", "occlusion"), ("forward", "light"),
                                ("backward", "vjp"), ("backward", "disney"), ("backward", "vjp")]
+
+
+def test_mis_pass_marks_glossy():
+    """A mis pass marks `glossy` in each BSDF dispatch for its one glossy
+    material tag (blinn_microfacet): per bounce NEE's eval and pdf, the
+    sample and its eval; each such mark is followed by a mark back to the
+    phase it interrupted, and without them the sequence is cbox's."""
+    scene = _small(os.path.join(SCENES, "mis", "mis.xml"))
+    tracing.enable()
+    render.render_image(scene, OPTS)
+    m = [p for _, p in tracing.marks()]
+    nested = [i for i, p in enumerate(m) if p == "glossy"]
+    assert all(m[i + 1] == m[i - 1] != "glossy" for i in nested)
+    drop = set(nested) | {i + 1 for i in nested}
+    assert [p for i, p in enumerate(m) if i not in drop] == CAMERA + BOUNCE * 3 + ["end"]
+    assert len(nested) == 4 * 3 and "disney" not in m and "envmap" not in m
+
+
+def test_tracing_off_adds_no_op_to_a_mis_pass():
+    """The operations a mis pass runs, in order, are the same with tracing
+    off as with it on (where on the CPU a mark launches nothing; the host
+    spans' record_function ranges, which no graph holds, aside): the
+    `glossy` phase blocks add no torch operation, so a graph captured with
+    tracing off holds the nodes it held before the phase existed, and the
+    marks, which only a capture with tracing on launches, are its only
+    difference; off, no mark is recorded."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not str(func).startswith("profiler."):  # the host spans' record_function ranges
+                self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    scene = _small(os.path.join(SCENES, "mis", "mis.xml"), size=4)
+    runs = {}
+    for on in (False, True):
+        tracing.enable() if on else tracing.disable()
+        tracing.reset()
+        with Ops() as ops:
+            img = render.render_image(scene, OPTS)
+        runs[on] = (ops.names, img, [p for _, p in tracing.marks()])
+    assert runs[False][2] == [] and runs[True][2].count("glossy") == 4 * 3
+    assert runs[False][0] == runs[True][0] and len(runs[False][0]) > 1000
+    np.testing.assert_array_equal(runs[False][1], runs[True][1])

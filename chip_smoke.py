@@ -17,16 +17,21 @@ hold the two modes against each other:
      source declared with the kernel runtime (geometry/_launch.py), all
      started together, and prints each kernel's registers, shared memory,
      stack frame and spills (every kernel, K1-K6, the RNG's, the Disney
-     lobes', the light phase's and the marks, must have no stack frame and
-     no spills);
-  rng, disney, light: the counter RNG's kernels (csrc/rng.cu), the Disney
-     lobes' (csrc/disney.cu: sample, eval and pdf at ibl's chrome and
-     composite) and the light phase's (csrc/light.cu: sample, nee and
-     arrival on every kind of light slot) on 2^20 lanes against their plain
-     versions (the RNG bit for bit; the lobes and the light phase bit for
+     lobes', the light phase's, the BSDF dispatch's and the marks, must
+     have no stack frame and no spills);
+  rng, disney, light, bsdf: the counter RNG's kernels (csrc/rng.cu), the
+     Disney lobes' (csrc/disney.cu: sample, eval and pdf at ibl's chrome
+     and composite), the light phase's (csrc/light.cu: sample, nee and
+     arrival on every kind of light slot) and the BSDF dispatch's
+     (csrc/bsdf.cu: sample, eval and pdf of every non-Disney tag, at
+     random parameters and at mis's exponents, and mixed) on 2^20 lanes
+     against their plain versions (the RNG bit for bit; the others bit for
      bit on all but a handful of lanes), each timed from a captured graph
-     beside its bytes bound and the plain version's time; every render on
-     the card below must run the light phase through its kernels alone;
+     beside its bytes bound and the plain version's time (the dispatch's on
+     lanes all diffuse and all blinn_microfacet, with its kernels'
+     registers, stack frame and spills); every render on the card below
+     must run the light phase and the BSDF dispatch through their kernels
+     alone;
   cbox (scenes/cbox/cbox.xml, 1024x1024, 16 spp, max_depth 4, seed 0; the
   brute-force path, K1/K2):
   3. parity: K1 (closest hit) and K2 (any hit) against their plain twins on
@@ -299,22 +304,25 @@ def ptxas_report(log):
 
 def build_phase(_build, _launch):
     """nvcc for every declared source at once, then load each library. Every
-    kernel (K1-K6, the RNG's, the Disney lobes' and the marks) must report
-    0 bytes of stack frame and no spills."""
+    kernel (K1-K6, the RNG's, the Disney lobes', the light phase's, the BSDF
+    dispatch's and the marks) must report 0 bytes of stack frame and no
+    spills. Returns each source's ptxas report."""
     t0 = time.perf_counter()
     sources = _launch.SOURCES
     with ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(lambda name: _build.build(name, sources[name].flags), sources)))
     for source in sources.values():
         source.lib()
-    for lib, nvcc_s, log in built.values():
-        report = ptxas_report(log)
+    reports = {}
+    for name, (lib, nvcc_s, log) in built.items():
+        report = reports[name] = ptxas_report(log)
         phase("build", f"{lib.name}: nvcc {nvcc_s:.2f} s; "
               + "; ".join(f"{k}: {used}; {frame}" for k, used, frame in report))
         if not report or any(
                 frame != "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for _, _, frame in report):
             raise RuntimeError(f"{lib.name}'s kernels use local memory: {report}")
     phase("build", f"{len(sources)} sources built in parallel and loaded in {time.perf_counter() - t0:.2f} s")
+    return reports
 
 
 # The bound of a kernel call: the larger of its bytes over the memory rate
@@ -752,6 +760,173 @@ def light_cell(torch, dev):
                     f"plain {plain_ms * 1e3:.1f} us ({plain_ms / ms:.1f}x)")
     phase("light", f"{n} lanes of {', '.join(LIGHT_CASES)}: every output bit-equal on at least "
           f"{100 * min(agree):.4f}% of lanes; times from a graph at cbox's kind: " + "; ".join(rows))
+    return out
+
+
+# the BSDF dispatch's kernels (csrc/bsdf.cu): lanes a call (a pass's paths),
+# input sets the timed calls cycle through (each ~100 MB, more than the 50
+# MB L2), the cases of bsdf_lanes (each non-Disney tag at random parameters,
+# the glossy tags also at mis's exponents, and every tag mixed), and the
+# kernels against the plain dispatch: lanes bit-equal in every output at
+# least, as DISNEY_BIT_SHARE
+BSDF_LANES, BSDF_SETS = 1 << 20, 2
+BSDF_TAGS = {"diffuse": 0, "mirror": 1, "plastic": 2, "phong": 3, "blinnphong": 4, "blinn_microfacet": 5,
+             "disneydiffuse": 6}  # scene/types.py's MAT_*
+MIS_EXPONENTS = (20.0, 100.0, 500.0, 3000.0)  # scenes/mis/mis.xml's plates
+BSDF_CASES = (*BSDF_TAGS, "phong_mis", "blinnphong_mis", "blinn_microfacet_mis", "mixed")
+BSDF_BIT_SHARE, BSDF_ZERO_FLIPS = 1 - 1e-5, 1e-5
+# bytes a lane needs, each input read once and each output written once:
+# the tag (4), the normals and dir_in (36), dir_out (12, eval and pdf), refl
+# (12, eval), the exponent (4, blinn_microfacet), the uniforms (8, sample),
+# and the output (dir_out and pdf 16, f 12, pdf 4)
+BSDF_BYTES = {("diffuse", "sample"): 4 + 36 + 8 + 16, ("diffuse", "eval"): 4 + 48 + 12 + 12,
+              ("diffuse", "pdf"): 4 + 48 + 4, ("blinn_microfacet", "sample"): 4 + 36 + 4 + 8 + 16,
+              ("blinn_microfacet", "eval"): 4 + 48 + 12 + 4 + 12, ("blinn_microfacet", "pdf"): 4 + 48 + 4 + 4}
+
+
+def bsdf_lanes(case, n, seed, device):
+    """(used tags, ShadePoint, dir_in, u_lobe, u1, u2, u3, sample_pdf) of
+    materials/bsdf.py's dispatch for n lanes drawn with numpy. `case` names
+    a tag of BSDF_TAGS (nine lanes in ten of it, the rest of the other
+    tags, Disney ones included), a glossy tag at mis's exponents (`_mis`),
+    or "mixed" (every tag alike); the used tags are those of the lanes. The
+    material's scalars are columns of one [n, 24] row tensor as
+    make_shade_point gathers them, each lane's own: refl, eta in [1, 2.5],
+    exponents log-uniform in [1, 5000] with edge values 0 and 1, roughness
+    and subsurface in [0, 1]. Shading normals tilted off the geometric ones,
+    on some lanes against them (a backface) or at +-z (to_world's singular
+    branch); dir_in in front, behind and grazing, on some lanes along the
+    shading normal; zero normals (a dead lane's miss) and a zero dir_in on a
+    few lanes; 24-bit uniforms with both edges; sample_pdf (Plastic's flag)
+    1 on a tenth of the lanes."""
+    import torch
+
+    from take_tpu_torch.materials import bsdf, disney
+    from take_tpu_torch.scene import types as ST
+
+    g = np.random.default_rng(seed)
+    every = [*BSDF_TAGS.values(), *disney.TAGS]
+    own = BSDF_TAGS.get(case.removesuffix("_mis"))
+    rows = np.zeros((n, ST.MATTR_DIM), np.float32)
+    if case == "mixed":
+        rows[:, ST.MATTR_TAG] = g.choice(every, n)
+    else:
+        rows[:, ST.MATTR_TAG] = np.where(g.random(n) < 0.1, g.choice(every, n), own)
+    for col in DISNEY_COLUMNS.values():
+        rows[:, col] = g.random(n)
+    rows[:, ST.MATTR_TEX_VALUE:ST.MATTR_TEX_VALUE + 3] = g.random((n, 3))
+    rows[:, ST.MATTR_ETA] = g.uniform(1.0, 2.5, n)
+    expo = np.exp(g.uniform(0.0, np.log(5000.0), n))
+    edge = g.random(n) < 0.02
+    expo[edge] = g.choice([0.0, 1.0], int(edge.sum()))
+    rows[:, ST.MATTR_EXPONENT] = g.choice(MIS_EXPONENTS, n) if case.endswith("_mis") else expo
+    geo_n = _unit(g.normal(size=(n, 3)))
+    sh_n = _unit(_unit(g.normal(size=(n, 3))) * 0.2 + geo_n)
+    dir_in = disney_directions(g, geo_n)
+    kind = g.integers(0, 100, n)
+    sh_n[kind == 0] = -sh_n[kind == 0]  # the shading normal against the geometric one
+    pole = (kind == 1) | (kind == 2)
+    sh_n[pole] = geo_n[pole] = np.where(kind[pole, None] == 1, [0.0, 0.0, -1.0], [0.0, 0.0, 1.0])
+    along = kind == 3
+    dir_in[along] = sh_n[along]
+    dead = kind == 4
+    geo_n[dead] = sh_n[dead] = 0.0
+    dir_in[kind == 5] = 0.0
+    p = torch.from_numpy(rows).to(device)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    sp = bsdf.ShadePoint(
+        tag=p[:, ST.MATTR_TAG].to(torch.int32), geo_n=f32(geo_n), sh_n=f32(sh_n),
+        refl=p[:, ST.MATTR_TEX_VALUE:ST.MATTR_TEX_VALUE + 3], front=torch.from_numpy(g.random(n) < 0.5).to(device),
+        **{name: p[:, col] for name, col in DISNEY_COLUMNS.items()})
+    u = [np.floor(g.random(n) * (1 << 24)) / (1 << 24) for _ in range(4)]
+    for x in u:
+        x[g.random(n) < 0.01], x[g.random(n) < 0.01] = 0.0, 1.0 - 2.0 ** -24
+    sample_pdf = g.uniform(0.0, 3.0, n) * (g.random(n) > 0.1)
+    sample_pdf[g.random(n) < 0.1] = 1.0
+    tags = tuple(sorted(set(rows[:, ST.MATTR_TAG].astype(int).tolist())))
+    return (tags, sp, f32(dir_in), *(f32(x) for x in u), f32(sample_pdf))
+
+
+def bsdf_dir_out(tags, sp, dir_in, u, seed):
+    """dir_out for eval and pdf: on even lanes the plain dispatch's own
+    samples (so that sharp lobes are hit), on odd lanes directions in front,
+    behind and grazing, and a zero direction on a few lanes."""
+    import torch
+
+    from take_tpu_torch.materials import bsdf
+
+    n, dev = dir_in.shape[0], dir_in.device
+    d, _ = bsdf._sample_plain(tags, sp, dir_in, *u)
+    g = np.random.default_rng(seed + 1)
+    with np.errstate(invalid="ignore"):  # the dead lanes' zero normals give NaN directions
+        other = disney_directions(g, sp.geo_n.cpu().numpy())
+    other[g.random(n) < 0.01] = 0.0
+    other = torch.from_numpy(other.astype(np.float32)).to(dev)
+    return torch.where((torch.arange(n, device=dev) % 2 == 0)[:, None], d, other)
+
+
+def bsdf_args(entry, lanes, dir_out):
+    """The kernel's arguments (bsdf._ARGS) and the plain dispatch's of the
+    tags but the Disney ones: (tags, kernel arguments, plain arguments)."""
+    from take_tpu_torch.materials import bsdf, disney
+
+    tags, sp, dir_in, u_lobe, u1, u2, u3, sample_pdf = lanes
+    own = {"sample": (u_lobe, u1, u2), "eval": (dir_out, sample_pdf), "pdf": (dir_out,)}[entry]
+    return (tuple(t for t in tags if t not in disney.TAGS), bsdf._arguments(entry, sp, dir_in, *own),
+            (sp, dir_in, *own))
+
+
+def bsdf_cell(torch, dev, ptxas):
+    """The BSDF dispatch's kernels (csrc/bsdf.cu) on BSDF_LANES lanes of
+    each of BSDF_CASES, each of sample, eval and pdf: every output held
+    against the plain dispatch of the same tags (bit for bit on at least
+    BSDF_BIT_SHARE of the lanes, the pdf's zero decisions flipped on at most
+    BSDF_ZERO_FLIPS; Disney lanes 0); then each kernel timed from a captured
+    graph cycling through BSDF_SETS input sets on lanes all diffuse (cbox's
+    and room's dispatch) and all blinn_microfacet at mis's exponents (mis's
+    plates; the plain dispatch of mis's two tags), beside its bytes bound
+    and the plain dispatch's time, with `ptxas`, the kernels' registers,
+    stack frame and spills; returns {name: times}."""
+    from take_tpu_torch.materials import bsdf
+
+    n, out, rows, agree = BSDF_LANES, {}, [], []
+    for case in BSDF_CASES:
+        lanes = bsdf_lanes(case, n, 110 + len(case), dev)
+        dir_out = bsdf_dir_out(lanes[0], lanes[1], lanes[2], lanes[3:6], 110 + len(case))
+        for entry in ("sample", "eval", "pdf"):
+            tags, kargs, pargs = bsdf_args(entry, lanes, dir_out)
+            got, want = bsdf._launch(entry, *kargs), bsdf._PLAIN[entry](tags, *pargs)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            for k, (a, b) in enumerate(zip(got, want)):
+                same, most, _ = agreement(a, b)
+                if a.shape != b.shape or same < BSDF_BIT_SHARE:
+                    raise RuntimeError(f"bsdf {case} {entry} output {k}: the kernel differs from the plain dispatch "
+                                       f"(bit-equal {same:.6f}, largest {most} ulps)")
+                agree.append(same)
+            if entry != "eval":
+                flips = int(((got[-1] > 0) != (want[-1] > 0)).sum())
+                if flips > BSDF_ZERO_FLIPS * n:
+                    raise RuntimeError(f"bsdf {case} {entry}: {flips} lanes' pdf is 0 on one side only")
+    for name, plain_tags in (("diffuse", (0,)), ("blinn_microfacet", (0, 5))):
+        sets = []
+        for k in range(BSDF_SETS):
+            lanes = bsdf_lanes(f"{name}_mis" if name != "diffuse" else name, n, 130 + k, dev)
+            mine = lanes[1]._replace(tag=torch.full_like(lanes[1].tag, BSDF_TAGS[name]))
+            lanes = (plain_tags, mine, *lanes[2:])
+            sets.append((lanes, bsdf_dir_out(plain_tags, mine, lanes[2], lanes[3:6], 130 + k)))
+        for entry in ("sample", "eval", "pdf"):
+            every = [bsdf_args(entry, lanes, dir_out) for lanes, dir_out in sets]
+            ms = graph_ms(torch, lambda k: bsdf._launch(entry, *every[k % BSDF_SETS][1]))
+            plain_ms = graph_ms(torch, lambda k: bsdf._PLAIN[entry](plain_tags, *every[k % BSDF_SETS][2]),
+                                calls=4, replays=3)
+            bound_ms, _ = bound(BSDF_BYTES[name, entry] * n, 0)
+            out[f"{name}_{entry}"] = {"ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms}
+            rows.append(f"{name} {entry} {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} us, "
+                        f"{100 * bound_ms / ms:.1f}%), plain {plain_ms * 1e3:.1f} us ({plain_ms / ms:.1f}x)")
+    phase("bsdf", f"{n} lanes of {', '.join(BSDF_CASES)}: every output bit-equal on at least "
+          f"{100 * min(agree):.4f}% of lanes; times from a graph: " + "; ".join(rows) + "; ptxas: "
+          + "; ".join(f"{k}: {used}; {frame}" for k, used, frame in ptxas))
+    out["ptxas"] = [list(r) for r in ptxas]
     return out
 
 
@@ -1227,8 +1402,10 @@ def kernels_only(launches, want, what):
 def render_counted(torch, _launch, render_image, scene, options, want, what):
     """Render with every launch count set to 0 just before; the counts read
     just after must be > 0 for the kernels in `want` and 0 for all other
-    scene queries, and the light phase must have run its kernels alone."""
+    scene queries, and the light phase and the BSDF dispatch must have run
+    their kernels alone."""
     from take_tpu_torch.integrator import light
+    from take_tpu_torch.materials import bsdf
 
     torch.cuda.synchronize()
     _launch.reset_launches()
@@ -1236,6 +1413,7 @@ def render_counted(torch, _launch, render_image, scene, options, want, what):
     torch.cuda.synchronize()
     launches = kernels_only(dict(_launch.LAUNCHES), want, what)
     kernels_only(light.LAUNCHES, ("light_sample", "light_nee", "light_arrival"), f"{what}'s light phase")
+    kernels_only(bsdf.LAUNCHES, ("bsdf_sample", "bsdf_eval", "bsdf_pdf"), f"{what}'s BSDF dispatch")
     if not np.isfinite(img).all():
         raise RuntimeError(f"{what}: the image is not finite")
     return img, launches
@@ -2891,11 +3069,12 @@ def main():
     from take_tpu_torch.render import clear_cache  # and with it every kernel wrapper, each declaring its source
     from take_tpu_torch.scene.types import scene_to
 
-    build_phase(_build, _launch)
+    ptxas = build_phase(_build, _launch)
     dev = torch.device(DEVICE)
     rng_times = rng_cell(torch, dev)
     disney_times = disney_cell(torch, dev)
     light_times = light_cell(torch, dev)
+    bsdf_times = bsdf_cell(torch, dev, ptxas["bsdf"])
     out_dir = ROOT / "build" / "take_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -2936,7 +3115,8 @@ def main():
           f"textured {launches_tex}, ibl {launches_ibl}; per gradient step {launches_grad}; parallel {launches_par}; "
           f"bench {launches_bench}; room grad {launches_room_grad}; inverse step {launches_inverse}")
     phase("times", f"card: {smi}; script {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "rng": rng_times, "disney": disney_times, "light": light_times}))
+    print(json.dumps({"kernels": kernels, "rng": rng_times, "disney": disney_times, "light": light_times,
+                      "bsdf": bsdf_times}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -9,7 +9,8 @@ other wrappers count in dicts of their own. Every counter is registered by
 key in `COUNTED`, no key in two: `reset_launches()` zeroes them all, and the
 graph cache (_graph.py) takes a capture's counts out of them and adds them
 back at each replay. Beside them, the wrappers' argument checks and the
-launch-error check.
+launch-error check, and the fields (`Field`, `field`) through which the
+kernels of csrc/disney.cu, light.cu and bsdf.cu read their inputs in place.
 """
 
 import collections
@@ -86,6 +87,23 @@ def check(name, x, dtype, shape, device):
             f"{name}: expected a contiguous {dtype} tensor of shape {shape} on {device}, "
             f"got {x.dtype} {tuple(x.shape)} on {x.device} (contiguous={x.is_contiguous()})"
         )
+
+
+class Field(ctypes.Structure):
+    """A field of a kernel's Inputs struct (csrc/disney.cu, light.cu,
+    bsdf.cu): lane i at p[i * s], a vector's component k at p[i * s + k]."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("s", ctypes.c_int64)]
+
+
+def field(name, x, n, dtype, width, device) -> Field:
+    """x as a Field, read in place: a `dtype` tensor on `device` of shape
+    [n] or [n, width], the last axis of unit stride; raise otherwise."""
+    shape = (n,) if width == 1 else (n, width)
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or (width > 1 and x.stride(1) != 1):
+        raise ValueError(f"{name}: expected a {dtype} tensor of shape {shape} on {device} with a unit stride on "
+                         f"its last axis, got {x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
+    return Field(x.data_ptr(), x.stride(0))
 
 
 def check_rays(ro, rd, tmin, tmax) -> int:

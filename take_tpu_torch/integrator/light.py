@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from take_tpu_torch.core.math import dot, gather_rows, safe_div, safe_norm
-from take_tpu_torch.geometry._launch import declare, raise_on
+from take_tpu_torch.geometry._launch import Field, declare, field, raise_on
 from take_tpu_torch.lights.lights import area_pdf_from_hit_geom, area_pdf_from_sample, sample_on_light
 from take_tpu_torch.scene.types import LATTR_DIM, LATTR_INTENSITY
 
@@ -174,12 +174,6 @@ _PLAIN = {"sample": _sample_plain, "nee": _nee_plain, "arrival": _arrival_plain}
 # -- The kernels (csrc/light.cu) --
 
 
-class _Field(ctypes.Structure):
-    """A field of light.cu's Inputs: lane i at p[i * s]."""
-
-    _fields_ = [("p", ctypes.c_void_p), ("s", ctypes.c_int64)]
-
-
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 # each entry's tensor arguments after the scene, in its plain version's
 # order: (light.cu's Inputs field, dtype, width); "lights" is the light
@@ -210,22 +204,12 @@ _META = ("n_lights", "n_slots", "has_envmap", "has_sph", "has_area", "has_point"
 
 
 class _Inputs(ctypes.Structure):
-    _fields_ = ([(name, _Field) for name in _FIELDS] + [("lights", ctypes.c_void_p), ("n", ctypes.c_int64)]
+    _fields_ = ([(name, Field) for name in _FIELDS] + [("lights", ctypes.c_void_p), ("n", ctypes.c_int64)]
                 + [(name, ctypes.c_int32) for name in _META])
 
 
 class _Outputs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for entry in ("sample", "nee", "arrival") for name, _, _ in _OUTS[entry]]
-
-
-def _field(name, x, n, dtype, width, device):
-    """x as a field of Inputs, read in place: a `dtype` tensor on `device`
-    of shape [n] or [n, width], the last axis of unit stride."""
-    shape = (n,) if width == 1 else (n, width)
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or (width > 1 and x.stride(1) != 1):
-        raise ValueError(f"{name}: expected a {dtype} tensor of shape {shape} on {device} with a unit stride on "
-                         f"its last axis, got {x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
-    return _Field(x.data_ptr(), x.stride(0))
 
 
 def _table(lights, device):
@@ -248,7 +232,7 @@ def _launch(entry, scene, *xs):
         if name == "lights":
             ins.lights = _table(x, dev)
         elif x is not None:
-            setattr(ins, name, _field(name, x, n, dtype, width, dev))
+            setattr(ins, name, field(name, x, n, dtype, width, dev))
     if entry == "sample":
         ins.lights = _table(scene.lights.attr.detach(), dev)  # geometry only: detached, as lights.gather_light_attrs
     outs = tuple(torch.empty((n,) if width == 1 else (n, width), dtype=dtype, device=dev)

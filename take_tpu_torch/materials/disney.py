@@ -39,7 +39,7 @@ from take_tpu_torch.core.math import (
     C_INVPI, C_PI, C_TWOPI, constant, cross, dot, face_forward, normalize, reflect, to_world,
 )
 from take_tpu_torch.core.sampling import sample_hemisphere_cos
-from take_tpu_torch.geometry._launch import declare, raise_on
+from take_tpu_torch.geometry._launch import Field, declare, field, raise_on
 from take_tpu_torch.materials import bsdf
 from take_tpu_torch.scene.types import (
     MAT_DISNEY_BSDF,
@@ -533,12 +533,6 @@ _PLAIN = {"sample": _sample_plain, "eval": _eval_plain, "pdf": _pdf_plain}
 # -- The kernels (csrc/disney.cu) --
 
 
-class _Field(ctypes.Structure):
-    """A field of disney.cu's Inputs: lane i at p[i * s]."""
-
-    _fields_ = [("p", ctypes.c_void_p), ("s", ctypes.c_int64)]
-
-
 # disney.cu's Inputs, field for field: the ShadePoint's fields it reads,
 # the directions, the uniforms and the lane count
 _VECTORS = ("refl", "geo_n", "sh_n", "dir_in", "dir_out")
@@ -548,17 +542,7 @@ _UNIFORMS = ("u_lobe", "u1", "u2", "u3")
 
 
 class _Inputs(ctypes.Structure):
-    _fields_ = [(name, _Field) for name in ("tag", "front", *_VECTORS, *_SCALARS, *_UNIFORMS)] + [("n", ctypes.c_int64)]
-
-
-def _field(name, x, n, dtype, width, device):
-    """x as a field of Inputs, read in place: a `dtype` tensor on `device`
-    of shape [n] or [n, width], the last axis of unit stride."""
-    shape = (n,) if width == 1 else (n, width)
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or (width > 1 and x.stride(1) != 1):
-        raise ValueError(f"{name}: expected a {dtype} tensor of shape {shape} on {device} with a unit stride on "
-                         f"its last axis, got {x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
-    return _Field(x.data_ptr(), x.stride(0))
+    _fields_ = [(name, Field) for name in ("tag", "front", *_VECTORS, *_SCALARS, *_UNIFORMS)] + [("n", ctypes.c_int64)]
 
 
 def _inputs(sp, dir_in, dir_out, uniforms):
@@ -566,16 +550,16 @@ def _inputs(sp, dir_in, dir_out, uniforms):
     and a row stride, with no copy. float32 only."""
     n, dev = dir_in.shape[0], dir_in.device
     ins = _Inputs(n=n)
-    ins.tag = _field("tag", sp.tag, n, torch.int32, 1, dev)
-    ins.front = _field("front", sp.front, n, torch.bool, 1, dev)
+    ins.tag = field("tag", sp.tag, n, torch.int32, 1, dev)
+    ins.front = field("front", sp.front, n, torch.bool, 1, dev)
     vectors = {"refl": sp.refl, "geo_n": sp.geo_n, "sh_n": sp.sh_n, "dir_in": dir_in, "dir_out": dir_out}
     for name, x in vectors.items():
         if x is not None:
-            setattr(ins, name, _field(name, x, n, torch.float32, 3, dev))
+            setattr(ins, name, field(name, x, n, torch.float32, 3, dev))
     for name in _SCALARS:
-        setattr(ins, name, _field(name, getattr(sp, name), n, torch.float32, 1, dev))
+        setattr(ins, name, field(name, getattr(sp, name), n, torch.float32, 1, dev))
     for name, u in zip(_UNIFORMS, uniforms):
-        setattr(ins, name, _field(name, u, n, torch.float32, 1, dev))
+        setattr(ins, name, field(name, u, n, torch.float32, 1, dev))
     return ins
 
 

@@ -134,9 +134,9 @@ def test_kernel_wrappers_read_in_place_and_launch():
 
 def test_wrapper_refuses_what_the_kernel_cannot_read():
     sp, dir_in, *u = disney_lanes(ST.MAT_DISNEY_METAL, 32, 2, "cpu")
-    x = disney._field("refl", sp.refl, 32, torch.float32, 3, dir_in.device)
+    x = _launch.field("refl", sp.refl, 32, torch.float32, 3, dir_in.device)
     assert (x.p, x.s) == (sp.refl.data_ptr(), ST.MATTR_DIM)
-    s = disney._field("u1", u[1].expand(32) if u[1].dim() == 0 else u[1][:1].expand(32), 32, torch.float32, 1,
+    s = _launch.field("u1", u[1].expand(32) if u[1].dim() == 0 else u[1][:1].expand(32), 32, torch.float32, 1,
                       dir_in.device)
     assert s.s == 0  # a broadcast scalar is read in place too
     column_major = dir_in.t().contiguous().t()
@@ -146,7 +146,7 @@ def test_wrapper_refuses_what_the_kernel_cannot_read():
     for what, (name, t, width) in bad.items():
         dtype = torch.int32 if name == "tag" else torch.float32
         with pytest.raises(ValueError, match=name):
-            disney._field(name, t, 32, dtype, width, dir_in.device)
+            _launch.field(name, t, 32, dtype, width, dir_in.device)
     with pytest.raises(ValueError, match="front"):
         disney._inputs(sp._replace(front=sp.front.float()), dir_in, dir_in, ())
 

@@ -18,7 +18,7 @@ import torch
 from take_tpu_torch import _graph, tracing
 from take_tpu_torch.core import rng
 from take_tpu_torch.geometry import _build, _launch
-from take_tpu_torch.materials import disney
+from take_tpu_torch.materials import bsdf, disney
 from tests.test_torch_pass_graph import fake_cuda  # noqa: F401 (a fixture)
 
 # a source that only this file declares: its launch keys are counted across
@@ -30,6 +30,7 @@ COUNTERS = {  # counter, and three of its keys
     "scene queries": (_launch.LAUNCHES, ("closest", "anyhit", "packet_closest")),
     "rng": (rng.LAUNCHES, ("uniform", "stream", "bits")),
     "disney": (disney.LAUNCHES, ("eval", "sample", "pdf")),
+    "bsdf": (bsdf.LAUNCHES, ("bsdf_eval", "bsdf_sample", "bsdf_pdf")),
     "stand-in": (STANDIN, ("standin_scan", "standin_fold", "standin_scan_plain")),
 }
 

@@ -159,7 +159,7 @@ def test_kernel_wrappers_read_in_place_and_launch():
 def test_wrapper_refuses_what_the_kernel_cannot_read():
     lanes = light_lanes("triangle", 32, 2, "cpu")
     pos = lanes[1][3]
-    x = light._field("pos", pos[::2], 16, torch.float32, 3, pos.device)
+    x = _launch.field("pos", pos[::2], 16, torch.float32, 3, pos.device)
     assert (x.p, x.s) == (pos.data_ptr(), 6)  # a strided view is read in place
     column_major = pos.t().contiguous().t()
     bad = {"dtype": ("u1", lanes[1][1].double(), torch.float32, 1), "shape": ("u1", lanes[1][1][:31], torch.float32, 1),
@@ -168,7 +168,7 @@ def test_wrapper_refuses_what_the_kernel_cannot_read():
            "flag dtype": ("spec", lanes[2][3].to(torch.uint8), torch.bool, 1)}
     for what, (name, t, dtype, width) in bad.items():
         with pytest.raises(ValueError, match=name):
-            light._field(name, t, 32, dtype, width, pos.device)
+            _launch.field(name, t, 32, dtype, width, pos.device)
     with pytest.raises(ValueError, match="lights"):
         light._table(lanes[0].lights.attr[:, :16], pos.device)
     with pytest.raises(ValueError, match="lights"):
